@@ -1,0 +1,352 @@
+"""Sparse-sample placement scoring (counterpart of
+usher_tpu/ops/placement_pallas.py).
+
+A sample has a few dozen VCF entries out of P segregating sites, and at every
+no-entry position the (sample, node) term does not depend on the sample.  So
+
+  score[n,b] = base[n]    + sum_k corr(n, b, pos[b,k])
+  nc[n,b]    = nc_base[n] + sum_k corr_nc(n, b, pos[b,k])
+
+with per-node row reductions base, nc_base (torch ops here) and corrections
+that read st/stp at the K entry columns only.  Two hand-written CUDA kernels
+(csrc/placement_sparse.cu) evaluate the corrections:
+
+  B1 ``score_entries_T``  the [N, B] score and num_common matrices
+  B2 ``placement_reduce`` B1 plus validity and the tie-broken argmin,
+                          through per-node-block partials merged here
+
+Each has a plain PyTorch twin (``*_plain``) built from column gathers
+``st[:, pos_chunk]``, chunked over the batch.  The wrappers run the kernel on
+CUDA tensors and the plain twin on CPU tensors, and never fall back from one
+to the other; each counts its kernel launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from usher_tpu.core.nuc import N as NUC_N
+
+from ._build import check, load_library
+from .placement import parent_states, reduce_best, valid_mask
+
+CHUNK_ELEMS = 1 << 26   # elements of one [N, Bc, K] gathered block (plain)
+POS_BITS = 22           # position field of the kernels' slot word
+SMEM_ROWS_BYTES = 96 * 1024  # shared memory a block spends on staged rows
+MAX_ROWS = 32
+
+
+# --- host-side slot encoding ----------------------------------------------
+
+def _k_slots(kmax: int, k_slots) -> int:
+    K = k_slots or 8
+    while K < max(kmax, 1):
+        K *= 2
+    return K
+
+
+def sparsify(samples_mutations, pos_index, P, k_slots=None):
+    """Mutation lists -> (pos [B,K] int32, gval [B,K] uint8, kmiss [B,K]
+    bool), numpy, with K the smallest power of two >= 8 holding every
+    sample's entries.  Padding slots carry pos = P."""
+    B = len(samples_mutations)
+    lens = np.fromiter((len(m) for m in samples_mutations),
+                       dtype=np.int64, count=B)
+    K = _k_slots(int(lens.max()) if B else 1, k_slots)
+    pos = np.full((B, K), P, dtype=np.int32)
+    gval = np.zeros((B, K), dtype=np.uint8)
+    kmiss = np.zeros((B, K), dtype=bool)
+    total = int(lens.sum())
+    if total:
+        flat = [m for muts in samples_mutations for m in muts]
+        try:
+            fpos = np.fromiter((pos_index[m.position] for m in flat),
+                               dtype=np.int32, count=total)
+        except KeyError:
+            bad = next(m.position for m in flat
+                       if m.position not in pos_index)
+            raise KeyError(f"sample position {bad} not in MAT")
+        fmiss = np.fromiter((m.is_missing for m in flat),
+                            dtype=bool, count=total)
+        fval = np.fromiter((m.mut_nuc for m in flat),
+                           dtype=np.uint8, count=total)
+        b_idx = np.repeat(np.arange(B), lens)
+        starts = np.cumsum(lens) - lens
+        k_idx = np.arange(total) - np.repeat(starts, lens)
+        pos[b_idx, k_idx] = fpos
+        gval[b_idx, k_idx] = np.where(fmiss, NUC_N, fval)
+        kmiss[b_idx, k_idx] = fmiss
+    return pos, gval, kmiss
+
+
+def sparsify_dense(g, E, miss, k_slots=None):
+    """Dense (g, E, miss) encoding -> sparse slot arrays, numpy.  Requires
+    g == ref at ~E positions (FlatMAT.encode_samples guarantees it)."""
+    g = np.asarray(g)
+    E = np.asarray(E)
+    miss = np.asarray(miss)
+    B, P = g.shape
+    counts = E.sum(1)
+    K = _k_slots(int(counts.max()) if B else 1, k_slots)
+    pos = np.full((B, K), P, dtype=np.int32)
+    gval = np.zeros((B, K), dtype=np.uint8)
+    kmiss = np.zeros((B, K), dtype=bool)
+    b_idx, p_idx = np.nonzero(E)          # row-major: sorted by (b, p)
+    if len(b_idx):
+        starts = np.cumsum(counts) - counts
+        k_idx = np.arange(len(b_idx)) - starts[b_idx]
+        pos[b_idx, k_idx] = p_idx
+        gval[b_idx, k_idx] = g[b_idx, p_idx]
+        kmiss[b_idx, k_idx] = miss[b_idx, p_idx]
+    return pos, gval, kmiss
+
+
+# --- per-node row reductions (torch ops on either device) ------------------
+
+def row_reductions(st, stp, ref):
+    """(base, nc_base, node_num_mut) [N] int32: the no-entry (g == ref) score
+    and num_common of every node, and its branch-mutation count.  Chunked
+    over rows so the [rows, P] temporaries stay within ``CHUNK_ELEMS``."""
+    N, P = st.shape
+    out = torch.empty((3, N), dtype=torch.int32, device=st.device)
+    r = ref[None, :]
+    rc = max(1, CHUNK_ELEMS // max(1, P))
+    for n0 in range(0, N, rc):
+        s, sp = st[n0:n0 + rc], stp[n0:n0 + rc]
+        bm = s != sp
+        matched0 = (r & s) != 0
+        out[0, n0:n0 + rc] = torch.where(bm & ~matched0, sp != r,
+                                         s != r).sum(1, dtype=torch.int32)
+        out[1, n0:n0 + rc] = (bm & matched0).sum(1, dtype=torch.int32)
+        out[2, n0:n0 + rc] = bm.sum(1, dtype=torch.int32)
+    return out[0], out[1], out[2]
+
+
+def _slot_fields(P, ref, pos):
+    """(kvalid, position clipped to the table, ref nibble at it) per slot."""
+    pos = pos.long()
+    kvalid = (pos >= 0) & (pos < P)
+    pc = torch.where(kvalid, pos, 0)
+    return kvalid, pc, ref[pc]
+
+
+# --- B1: [N, B] score / num_common ------------------------------------------
+
+def score_entries_T_plain(st, stp, ref, base, nc_base, pos, gval, kmiss):
+    """Plain twin of B1.  st/stp [N,P] uint8, ref [P] uint8, base/nc_base
+    [N] int32, pos [B,K] int (slots with pos outside [0, P) are padding),
+    gval [B,K] uint8, kmiss [B,K] bool.  Returns (score_T, nc_T) [N,B]
+    int32."""
+    N, P = st.shape
+    B, K = pos.shape
+    kvalid, pc, refk = _slot_fields(P, ref, pos)
+    score_t = torch.empty((N, B), dtype=torch.int32, device=st.device)
+    nc_t = torch.empty((N, B), dtype=torch.int32, device=st.device)
+    bc = max(1, min(B, CHUNK_ELEMS // max(1, N * K)))
+    for b0 in range(0, B, bc):
+        sl = slice(b0, b0 + bc)
+        cols = pc[sl].reshape(-1)
+        s = st[:, cols].view(N, -1, K)                     # [N,Bc,K]
+        sp = stp[:, cols].view(N, -1, K)
+        gv, rk = gval[sl][None], refk[sl][None]
+        kv, km = kvalid[sl][None], kmiss[sl][None]
+        bm = s != sp
+        matched = (gv & s) != 0
+        matched_r = (rk & s) != 0
+        a = torch.where(bm & ~matched, sp, s)
+        term1 = kv & ~km & ((gv & a) == 0)
+        sub = kv & torch.where(bm & ~matched_r, sp != rk, s != rk)
+        nca = kv & bm & matched
+        ncb = kv & bm & matched_r
+        score_t[:, sl] = (base[:, None] + term1.sum(-1, dtype=torch.int32)
+                          - sub.sum(-1, dtype=torch.int32))
+        nc_t[:, sl] = (nc_base[:, None] + nca.sum(-1, dtype=torch.int32)
+                       - ncb.sum(-1, dtype=torch.int32))
+    return score_t, nc_t
+
+
+def _check_state(st, stp, ref, base, nc_base, pos, gval, kmiss):
+    N, P = st.shape
+    for name, t, dt in (("st", st, torch.uint8), ("stp", stp, torch.uint8),
+                        ("ref", ref, torch.uint8), ("gval", gval, torch.uint8),
+                        ("kmiss", kmiss, torch.bool)):
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+    if stp.shape != st.shape or ref.shape != (P,):
+        raise ValueError(f"shapes st {tuple(st.shape)}, stp "
+                         f"{tuple(stp.shape)}, ref {tuple(ref.shape)}")
+    if base.shape != (N,) or nc_base.shape != (N,):
+        raise ValueError("base/nc_base must be [N]")
+    if pos.dim() != 2 or gval.shape != pos.shape or kmiss.shape != pos.shape:
+        raise ValueError("pos/gval/kmiss must be [B,K] of one shape")
+    if P >= 1 << POS_BITS:
+        raise ValueError(f"P={P} exceeds the kernels' {POS_BITS}-bit "
+                         "position field")
+    for t in (stp, ref, base, nc_base, pos, gval, kmiss):
+        if t.device != st.device:
+            raise ValueError("all inputs must lie on one device")
+
+
+def _slot_words(P, ref, pos, gval, kmiss):
+    """The kernels' packed slot words, k-major [K, B] int32 (layout in
+    csrc/placement_sparse.cu)."""
+    kvalid, pc, refk = _slot_fields(P, ref, pos)
+    w = (pc
+         | ((gval.long() & 0xF) << 22)
+         | (kmiss.long() << 26)
+         | (kvalid.long() << 27)
+         | ((refk.long() & 0xF) << 28))
+    # values fill 32 bits: reinterpret the low word as int32
+    w = torch.where(w >= 1 << 31, w - (1 << 32), w)
+    return w.to(torch.int32).t().contiguous()
+
+
+def rows_per_block(P: int) -> int:
+    """Node rows a kernel block stages in shared memory (P bytes each)."""
+    pitch = (P + 15) // 16 * 16
+    return max(1, min(MAX_ROWS, SMEM_ROWS_BYTES // pitch))
+
+
+def score_entries_T(st, stp, ref, base, nc_base, pos, gval, kmiss):
+    """B1 wrapper: the CUDA kernel for CUDA tensors, the plain twin for CPU
+    tensors.  Same signature and outputs as ``score_entries_T_plain``."""
+    _check_state(st, stp, ref, base, nc_base, pos, gval, kmiss)
+    if st.device.type == "cpu":
+        return score_entries_T_plain(st, stp, ref, base, nc_base, pos, gval,
+                                     kmiss)
+    if st.device.type != "cuda":
+        raise ValueError(f"no B1 kernel for device {st.device}")
+    lib = load_library()
+    N, P = st.shape
+    B, K = pos.shape
+    st, stp = st.contiguous(), stp.contiguous()
+    base = base.to(torch.int32).contiguous()
+    nc_base = nc_base.to(torch.int32).contiguous()
+    slots = _slot_words(P, ref, pos, gval, kmiss)
+    score_t = torch.empty((N, B), dtype=torch.int32, device=st.device)
+    nc_t = torch.empty((N, B), dtype=torch.int32, device=st.device)
+    stream = torch.cuda.current_stream(st.device).cuda_stream
+    err = lib.usher_score_entries_T(
+        st.data_ptr(), stp.data_ptr(), base.data_ptr(), nc_base.data_ptr(),
+        slots.data_ptr(), N, P, B, K, rows_per_block(P), score_t.data_ptr(),
+        nc_t.data_ptr(), stream)
+    check(err, "usher_score_entries_T")
+    score_entries_T.launches += 1
+    return score_t, nc_t
+
+
+score_entries_T.launches = 0
+
+
+def score_sparse_stp_T(st, stp, ref, pos, gval, kmiss):
+    """Node-major sparse scoring given the parent states.  Returns
+    (score_T [N,B], num_common_T [N,B], node_num_mut [N]) int32: the dense
+    score_batch outputs transposed, without inactive-slot masking."""
+    base, nc_base, node_num_mut = row_reductions(st, stp, ref)
+    score_t, nc_t = score_entries_T(st, stp, ref, base, nc_base, pos, gval,
+                                    kmiss)
+    return score_t, nc_t, node_num_mut
+
+
+def score_sparse_T(st, parent, root_slot, ref, pos, gval, kmiss):
+    """score_sparse_stp_T with stp = st[parent] (root row its own)."""
+    stp = parent_states(st, parent, root_slot)
+    return score_sparse_stp_T(st, stp, ref, pos, gval, kmiss)
+
+
+# --- B2: fused validity + tie-broken argmin -------------------------------
+
+def placement_reduce_plain(st, stp, ref, base, nc_base, node_num_mut, active,
+                           is_leaf, is_root_mask, num_leaves, bfs_rank, pos,
+                           gval, kmiss):
+    """Plain twin of B2: B1's plain twin, then validity and the argmin over
+    the whole [N, B] matrices.  Returns (best_score, best_row, num_best)
+    [B] int32."""
+    score_t, nc_t = score_entries_T_plain(st, stp, ref, base, nc_base, pos,
+                                          gval, kmiss)
+    valid, _ = valid_mask(score_t.T, nc_t.T, node_num_mut, is_root_mask,
+                          is_leaf, active)
+    return reduce_best(score_t.T, valid, num_leaves, bfs_rank)
+
+
+def _merge_partials(pbest, pcnt, p1, p2, bfs_rank, N):
+    """Exact merge of the per-block partials [n_blocks, B]
+    (placement_pallas.py:557-570)."""
+    gbest = pbest.min(0).values
+    m = pbest == gbest[None, :]
+    num_best = torch.where(m, pcnt, 0).sum(0, dtype=torch.int32)
+    g1 = torch.where(m, p1, -1).max(0).values
+    g2 = torch.where(m & (p1 == g1[None, :]), p2, -1).max(0).values
+    rank = torch.clamp(g2 >> 1, min=0)
+    # winner row via the inverse rank permutation; inactive slots
+    # (bfs_rank -1) write a dump entry at N that is never read
+    dest = torch.where(bfs_rank >= 0, bfs_rank, N).long()
+    row_of_rank = torch.zeros(N + 1, dtype=torch.int32, device=pbest.device)
+    row_of_rank[dest] = torch.arange(N, dtype=torch.int32,
+                                     device=pbest.device)
+    best_row = row_of_rank[torch.clamp(rank, max=N - 1).long()]
+    return gbest, best_row, num_best
+
+
+def placement_reduce(st, stp, ref, base, nc_base, node_num_mut, active,
+                     is_leaf, is_root_mask, num_leaves, bfs_rank, pos, gval,
+                     kmiss):
+    """B2 wrapper: the CUDA kernel plus the exact partial merge for CUDA
+    tensors, the plain twin for CPU tensors."""
+    _check_state(st, stp, ref, base, nc_base, pos, gval, kmiss)
+    for t in (node_num_mut, active, is_leaf, is_root_mask, num_leaves,
+              bfs_rank):
+        if t.shape != base.shape or t.device != st.device:
+            raise ValueError("per-node inputs must be [N] on st's device")
+    if st.device.type == "cpu":
+        return placement_reduce_plain(st, stp, ref, base, nc_base,
+                                      node_num_mut, active, is_leaf,
+                                      is_root_mask, num_leaves, bfs_rank,
+                                      pos, gval, kmiss)
+    if st.device.type != "cuda":
+        raise ValueError(f"no B2 kernel for device {st.device}")
+    lib = load_library()
+    N, P = st.shape
+    B, K = pos.shape
+    st, stp = st.contiguous(), stp.contiguous()
+    base = base.to(torch.int32).contiguous()
+    nc_base = nc_base.to(torch.int32).contiguous()
+    flags = (active.to(torch.int32)
+             | (is_leaf.to(torch.int32) << 1)
+             | (is_root_mask.to(torch.int32) << 2))
+    nodemeta = torch.stack([num_leaves.to(torch.int32),
+                            bfs_rank.to(torch.int32),
+                            node_num_mut.to(torch.int32), flags],
+                           dim=1).contiguous()
+    slots = _slot_words(P, ref, pos, gval, kmiss)
+    rows = rows_per_block(P)
+    n_blocks = -(-N // rows)
+    parts = torch.empty((4, n_blocks, B), dtype=torch.int32,
+                        device=st.device)
+    stream = torch.cuda.current_stream(st.device).cuda_stream
+    err = lib.usher_placement_partials(
+        st.data_ptr(), stp.data_ptr(), base.data_ptr(), nc_base.data_ptr(),
+        nodemeta.data_ptr(), slots.data_ptr(), N, P, B, K, rows,
+        *(part.data_ptr() for part in parts), stream)
+    check(err, "usher_placement_partials")
+    placement_reduce.launches += 1
+    return _merge_partials(parts[0], parts[1], parts[2], parts[3],
+                           bfs_rank.to(torch.int32), N)
+
+
+placement_reduce.launches = 0
+
+
+def placement_step_sparse(st, parent, root_slot, ref, active, is_leaf,
+                          is_root_mask, num_leaves, bfs_rank, pos, gval,
+                          kmiss):
+    """Sparse counterpart of ops.placement.placement_step: scoring,
+    validity and the tie-broken argmin with the [N, B] matrices never
+    written (through B2 on CUDA).  Returns (best_score, best_row, num_best)
+    [B] int32."""
+    stp = parent_states(st, parent, root_slot)
+    base, nc_base, node_num_mut = row_reductions(st, stp, ref)
+    return placement_reduce(st, stp, ref, base, nc_base, node_num_mut,
+                            active, is_leaf, is_root_mask, num_leaves,
+                            bfs_rank, pos, gval, kmiss)
