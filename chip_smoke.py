@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from usher_tpu_torch/csrc, then runs
-five phases and fails (non-zero exit) if any of them fails:
+eight phases and fails (non-zero exit) if any of them fails:
 
-  kernel_small     B1 and B2 against their plain PyTorch twins on the card,
+  kernel_small     B1, B1-spr and B2 against their plain PyTorch twins on the card,
                    on random MATs with ambiguous and missing entries,
-                   padding slots, inactive slots and forced ties
+                   padding slots, inactive slots and forced ties, and
+                   again on multi-base path states, where B1-spr's
+                   scores must differ from B1's
   kernel_headline  the same on a synthetic 100,000-node x 512-site MAT,
                    1,024 samples of 16 entries, with the median ms of 5 runs
   kernel_genome    the same at genome width: 100,000 nodes x 30,000 sites,
@@ -19,12 +21,27 @@ five phases and fails (non-zero exit) if any of them fails:
                    some N) onto a synthetic 100,000-node x 30,000-site MAT
                    saved as a pb, with -s so that the sort pre-pass runs
                    the fused B2 step over the whole set
+  bigmat_fixture   the fixture's two CLI steps with --bigmat (the CSR
+                   BigMAT engine), byte-matching tests/goldens/smoke_*
+  bigmat_realistic the realistic run again with --bigmat; its output files
+                   must be byte-identical to realistic_e2e's
+  bigmat_pandemic  a chain-consistent synthetic 1,000,000-node x
+                   30,000-site BigMAT (bench.py's pandemic_1m_x_30k shape),
+                   1,024 samples of 24 entries (32 slots): place_arrays
+                   (X5) on all of them against the interval scores (X8)
+                   reduced on the host and the host engine; the column
+                   path (B1-spr, both modes) against the interval engine;
+                   B1-spr against its plain twin at that shape, on the
+                   tree's path states and on multi-base ones
 
 Kernel against plain comparisons are exact (tolerance 0: the arithmetic is
-integer).  The launch counters are zeroed right before the two CLI runs
-(the main path) and read right after them.  Earlier lines report the
-card, the build, each phase and the kernels (one JSON object); the last
-line is {"ok": true, "device": {...}}.  Work files go to build/chip_smoke/.
+integer).  The launch counters are zeroed right before each main path and
+read right after it: the dense path (fixture_e2e and the realistic CLI
+run, kernels B1 and B2) and the BigMAT path (bigmat_fixture,
+bigmat_realistic and bigmat_pandemic's scoring calls, kernel B1-spr in the
+column path).  Earlier lines report the card, the build, each phase and
+the kernels (one JSON object); the last line is {"ok": true, "device":
+{...}}.  Work files go to build/chip_smoke/.
 The script imports no jax: the port shares only the JAX-free host layers
 of usher_tpu (tree, I/O, host oracle).
 """
@@ -47,6 +64,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 NIBBLES = np.array([1, 2, 4, 8], dtype=np.uint8)
 CHROM = "NC_045512v2"
+GOLDENS = os.path.join(REPO, "tests", "goldens")
+PLACE_FILES = ("placement_stats.tsv", "final-tree.nh", "mutation-paths.txt")
+GOLDEN_FILES = ("smoke_placement_stats.tsv", "smoke_final_tree.nh",
+                "smoke_mutation_paths.txt")
 
 
 def log(*a):
@@ -83,23 +104,38 @@ def max_abs_err(got, want) -> int:
 
 
 class Kernels:
-    """The two kernels of the slice: comparison errors, times and the
-    launch counts of the main path."""
+    """The kernels of the port: comparison errors, times and the launch
+    counts of a main path."""
 
     def __init__(self, ps):
         self.ps = ps
-        self.err = {"B1": 0, "B2": 0}
+        self.err = {"B1": 0, "B2": 0, "B1-spr": 0}
         self.ms = {}
 
-    def compare(self, st, stp, ref, node, pos, gval, kmiss):
-        """B1 and B2 against their plain twins on one input; node is
-        (active, is_leaf, is_root, num_leaves, bfs_rank)."""
+    def compare_b1(self, b1, ambiguous=False):
+        """B1 and B1-spr against their plain twins on one input.  With
+        ambiguous path states (several bases in a mask) the SPR term
+        (ref & a_r) == 0 and the placement term a_r != ref part, so the
+        kernel's two modes must give different scores there."""
+        ps = self.ps
+        scores = {}
+        for name, spr in (("B1", False), ("B1-spr", True)):
+            got = ps.score_entries_T(*b1, spr=spr)
+            self.err[name] = max(self.err[name], max_abs_err(
+                got, ps.score_entries_T_plain(*b1, spr=spr)))
+            scores[spr] = got[0]
+        torch.cuda.synchronize()
+        if ambiguous and torch.equal(scores[False], scores[True]):
+            raise AssertionError("B1-spr scores equal B1's on ambiguous "
+                                 "path states")
+
+    def compare(self, st, stp, ref, node, pos, gval, kmiss, ambiguous=False):
+        """B1, B1-spr and B2 against their plain twins on one input; node
+        is (active, is_leaf, is_root, num_leaves, bfs_rank)."""
         ps = self.ps
         base, nc_base, nnm = ps.row_reductions(st, stp, ref)
         b1 = (st, stp, ref, base, nc_base, pos, gval, kmiss)
-        self.err["B1"] = max(self.err["B1"], max_abs_err(
-            ps.score_entries_T(*b1), ps.score_entries_T_plain(*b1)))
-        torch.cuda.synchronize()
+        self.compare_b1(b1, ambiguous)
         b2 = (st, stp, ref, base, nc_base, nnm, *node, pos, gval, kmiss)
         self.err["B2"] = max(self.err["B2"], max_abs_err(
             ps.placement_reduce(*b2), ps.placement_reduce_plain(*b2)))
@@ -117,11 +153,27 @@ class Kernels:
 
     def reset_counts(self):
         self.ps.score_entries_T.launches = 0
+        self.ps.score_entries_T.launches_spr = 0
         self.ps.placement_reduce.launches = 0
 
     def counts(self):
-        return {"B1": self.ps.score_entries_T.launches,
+        """Launches per kernel; B1 counts its spr=False launches only."""
+        f = self.ps.score_entries_T
+        return {"B1": f.launches - f.launches_spr, "B1-spr": f.launches_spr,
                 "B2": self.ps.placement_reduce.launches}
+
+
+def ambiguous_states(st, parent, root_slot, seed):
+    """st with a random base mask ORed into a quarter of its entries (most
+    become multi-base ambiguity masks, as Fitch sets are), and the parent
+    states of the result."""
+    from usher_tpu_torch.ops.placement import parent_states
+    g = torch.Generator(device=st.device).manual_seed(seed)
+    r = torch.randint(0, 64, tuple(st.shape), dtype=torch.uint8,
+                      device=st.device, generator=g)
+    st = torch.where(r < 16, st | r, st)
+    del r
+    return st, parent_states(st, parent, root_slot)
 
 
 # --- random MATs (the tests/test_placement.py recipes) --------------------
@@ -214,7 +266,12 @@ def phase_kernel_small(kern, device):
                                 ps.sparsify(samples, flat.pos_index,
                                             flat.P_pad, k_slots))
             kern.compare(st, stp, flat.ref_dev, node, pos, gval, kmiss)
-            cases += 1
+            # the same slots on multi-base path states, where B1-spr's
+            # SPR term parts from B1's placement term
+            st_a, stp_a = ambiguous_states(st, parent, flat.root_slot, seed)
+            kern.compare(st_a, stp_a, flat.ref_dev, node, pos, gval, kmiss,
+                         ambiguous=True)
+            cases += 2
     return {"cases": cases, "max_abs_err": dict(kern.err)}
 
 
@@ -308,9 +365,16 @@ def run_cli(argv):
         raise AssertionError(f"usher CLI {argv} returned {rc}")
 
 
+def same_files(dir_a, dir_b, pairs):
+    for fa, fb in pairs:
+        with open(os.path.join(dir_a, fa), "rb") as a, \
+                open(os.path.join(dir_b, fb), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{dir_a}/{fa} differs from {dir_b}/{fb}")
+
+
 def phase_fixture_e2e(kern):
     fx = os.path.join(REPO, "tests", "fixtures")
-    gold = os.path.join(REPO, "tests", "goldens")
     out = os.path.join(WORK, "fixture")
     seen = []
     with sankoff_devices(seen):
@@ -322,14 +386,7 @@ def phase_fixture_e2e(kern):
              "-v", os.path.join(fx, "new_samples.vcf"),
              "-o", os.path.join(out, "out2.pb"), "-d",
              os.path.join(out, "p"), "--mesh-devices", "0"])
-    for fname, gname in [("placement_stats.tsv", "smoke_placement_stats.tsv"),
-                         ("final-tree.nh", "smoke_final_tree.nh"),
-                         ("mutation-paths.txt", "smoke_mutation_paths.txt")]:
-        with open(os.path.join(out, "p", fname), "rb") as a, \
-                open(os.path.join(gold, gname), "rb") as b:
-            if a.read() != b.read():
-                raise AssertionError(f"{fname} deviates from tests/goldens/"
-                                     f"{gname}")
+    same_files(os.path.join(out, "p"), GOLDENS, zip(PLACE_FILES, GOLDEN_FILES))
     if seen != ["cuda"]:
         raise AssertionError(f"Sankoff ran on {seen}, expected ['cuda']")
     counts = kern.counts()
@@ -422,16 +479,17 @@ def realistic_setup(mat, n_samples, seed):
                         "tree_nodes": T.num_nodes()}
 
 
-def run_realistic_cli(pb, vcf, batch_size):
+def run_realistic_cli(pb, vcf, batch_size, *flags):
     from usher_tpu.utils.instrument import Instrumentor
-    out = os.path.join(WORK, "realistic", "out")
-    trace = os.path.join(WORK, "realistic", "trace.json")
+    tag = "".join(f.strip("-") for f in flags)
+    out = os.path.join(WORK, "realistic", "out" + tag)
+    trace = os.path.join(WORK, "realistic", f"trace{tag}.json")
     inst = Instrumentor.get()
     inst.begin_session(trace)
     t0 = time.perf_counter()
     try:
         run_cli(["-i", pb, "-v", vcf, "-d", out, "-s",
-                 "--batch-size", str(batch_size)])
+                 "--batch-size", str(batch_size), *flags])
     finally:
         inst.end_session()
     return time.perf_counter() - t0, stage_seconds(trace), out
@@ -506,6 +564,275 @@ def check_realistic(kern, T, vcf, out_dir, n_samples, counts, device,
             "main_shapes": shapes}
 
 
+# --- the BigMAT path ---------------------------------------------------------
+
+@contextlib.contextmanager
+def bigmat_devices(seen):
+    """Record the device of every BigMAT the CLI builds."""
+    from usher_tpu_torch.core.bigmat import BigMAT
+    orig = BigMAT.from_tree.__func__
+
+    def spy(cls, *a, **k):
+        big = orig(cls, *a, **k)
+        seen.append(big.device.type)
+        return big
+
+    BigMAT.from_tree = classmethod(spy)
+    try:
+        yield
+    finally:
+        BigMAT.from_tree = classmethod(orig)
+
+
+def phase_bigmat_fixture():
+    fx = os.path.join(REPO, "tests", "fixtures")
+    out = os.path.join(WORK, "fixture_bigmat")
+    seen = []
+    with bigmat_devices(seen):
+        run_cli(["-t", os.path.join(fx, "global_phylo.nh"),
+                 "-v", os.path.join(fx, "global_samples.vcf"),
+                 "-o", os.path.join(out, "out.pb"), "-d",
+                 os.path.join(out, "b"), "--bigmat", "--mesh-devices", "0"])
+        run_cli(["-i", os.path.join(out, "out.pb"),
+                 "-v", os.path.join(fx, "new_samples.vcf"),
+                 "-o", os.path.join(out, "out2.pb"), "-d",
+                 os.path.join(out, "p"), "--bigmat", "--mesh-devices", "0"])
+    same_files(os.path.join(out, "p"), GOLDENS, zip(PLACE_FILES, GOLDEN_FILES))
+    if not seen or set(seen) != {"cuda"}:
+        raise AssertionError(f"BigMATs built on {seen}, expected cuda")
+    return {"goldens": "byte-identical", "bigmat_builds": len(seen),
+            "bigmat_device": seen[0]}
+
+
+def phase_bigmat_realistic(pb, vcf, dense_out, batch_size):
+    seen = []
+    with bigmat_devices(seen):
+        wall, stages, out = run_realistic_cli(pb, vcf, batch_size,
+                                              "--bigmat")
+    same_files(out, dense_out, zip(PLACE_FILES, PLACE_FILES))
+    if not seen or set(seen) != {"cuda"}:
+        raise AssertionError(f"BigMATs built on {seen}, expected cuda")
+    return {"vs_realistic_e2e": "byte-identical " + ", ".join(PLACE_FILES),
+            "bigmat_builds": len(seen), "cli_seconds": wall,
+            "stage_seconds": {k: round(v, 3) for k, v in stages.items()}}
+
+
+def synth_bigmat(rng, N, P, n_mut=2, device=None):
+    """bench.py's synth_bigmat recipe (random recursive tree, n_mut branch
+    mutations at random columns per non-root node) with chain-consistent
+    mutations: mut_par is the path state above the mutation (the mut of
+    the nearest ancestor mutation in the same column, else ref), and mut
+    is a different base.  Columns are distinct within a node."""
+    from usher_tpu_torch.core.bigmat import BigMAT
+    parent = np.zeros(N, dtype=np.int32)
+    parent[1:] = (rng.random(N - 1) * np.arange(1, N)).astype(np.int32)
+    M = n_mut * (N - 1)
+    mut_ptr = np.zeros(N + 1, dtype=np.int64)
+    mut_ptr[2:] = n_mut * np.arange(1, N, dtype=np.int64)
+    col = rng.integers(0, P, size=(N - 1, n_mut))
+    for j in range(1, n_mut):
+        dup = (col[:, j:j + 1] == col[:, :j]).any(1)
+        while dup.any():
+            col[dup, j] = rng.integers(0, P, size=int(dup.sum()))
+            dup = (col[:, j:j + 1] == col[:, :j]).any(1)
+    mut_col = col.reshape(-1).astype(np.int32)
+    shift = rng.integers(1, 4, size=M)
+    ref = NIBBLES[rng.integers(0, 4, size=P)]
+    positions = np.arange(P, dtype=np.int64)
+    # DFS intervals of the topology: a BigMAT of it without mutations
+    topo = BigMAT(parent, np.zeros(N + 1, np.int64), np.zeros(0, np.int32),
+                  np.zeros(0, np.uint8), np.zeros(0, np.uint8), positions,
+                  ref, device=device)
+    node = 1 + np.arange(M) // n_mut
+    d = topo.dfs_of[node].astype(np.int64)
+    e = topo.dfs_end_of[node].astype(np.int64)
+    del topo
+    # sorted by (column, DFS row), a mutation's nearest same-column
+    # ancestor is the previous mutation of its column or, when that one's
+    # interval does not contain it, that one's own nearest ancestor
+    # (pointer chasing until an interval contains it or none is left)
+    order = np.lexsort((d, mut_col))
+    c_s, d_s, e_s = mut_col[order], d[order], e[order]
+    anc = np.arange(M) - 1
+    anc[np.r_[True, c_s[1:] != c_s[:-1]]] = -1
+    todo = np.nonzero(anc >= 0)[0]
+    while len(todo):
+        todo = todo[d_s[todo] >= e_s[anc[todo]]]
+        anc[todo] = anc[anc[todo]]
+        todo = todo[anc[todo] >= 0]
+    depth = np.zeros(M, np.int64)
+    while True:
+        nd = np.where(anc >= 0, depth[np.maximum(anc, 0)] + 1, 0)
+        if (nd == depth).all():
+            break
+        depth = nd
+    par_s = np.empty(M, np.uint8)
+    mut_s = np.empty(M, np.uint8)
+    sh = shift[order]
+    for lv in range(int(depth.max()) + 1):
+        i = np.nonzero(depth == lv)[0]
+        par_s[i] = ref[c_s[i]] if lv == 0 else mut_s[anc[i]]
+        mut_s[i] = NIBBLES[(np.searchsorted(NIBBLES, par_s[i]) + sh[i]) % 4]
+    mut_par = np.empty(M, np.uint8)
+    mut_mut = np.empty(M, np.uint8)
+    mut_par[order] = par_s
+    mut_mut[order] = mut_s
+    return BigMAT(parent, mut_ptr, mut_col, mut_par, mut_mut, positions, ref,
+                  device=device)
+
+
+def big_samples(rng, big, B, K, K_slots, n_new=4):
+    """B samples near random nodes, as slot arrays [B, K_slots]: up to
+    K - n_new of the node's non-reference path-state entries plus n_new
+    new non-reference entries at other columns; the rest is padding."""
+    pos = np.full((B, K_slots), big.P, np.int32)
+    gval = np.zeros((B, K_slots), np.uint8)
+    for b, x in enumerate(rng.integers(0, big.N, size=B).tolist()):
+        state = {}
+        while True:
+            lo, hi = int(big.mut_ptr[x]), int(big.mut_ptr[x + 1])
+            for c, v in zip(big.mut_col[lo:hi].tolist(),
+                            big.mut_mut[lo:hi].tolist()):
+                state.setdefault(c, v)
+            p = int(big.parent[x])
+            if p == x:
+                break
+            x = p
+        ent = {c: v for c, v in state.items() if v != big.ref[c]}
+        ent = dict(list(ent.items())[:K - n_new])
+        while len(ent) < K:
+            c = int(rng.integers(0, big.P))
+            if c not in ent and c not in state:
+                ent[c] = int(NIBBLES[(np.searchsorted(NIBBLES, big.ref[c])
+                                      + int(rng.integers(1, 4))) % 4])
+        pos[b, :K] = list(ent)
+        gval[b, :K] = list(ent.values())
+    return pos, gval, np.zeros((B, K_slots), dtype=bool)
+
+
+def host_reduce(big, score_T, nc_T):
+    """The host tie-break of BigPlacementEngine.score_samples over [N, B]
+    score/num_common matrices, vectorized over samples: (best_score,
+    best_slot, num_best, has_unique at the winner) [B]."""
+    hu = nc_T < big.node_num_mut[:, None]
+    ncp = nc_T > 0
+    leaf = big.is_leaf[:, None]
+    valid = ((big.is_root_mask[:, None] | (leaf & ncp) | (~leaf & hu & ncp)
+              | (~leaf & ~hu)) & big.active[:, None])
+    best = np.where(valid, score_T, 1 << 30).min(0)
+    tied = valid & (score_T == best[None, :])
+    num_best = tied.sum(0)
+    leaves = np.where(tied, big.num_leaves[:, None], -1).max(0)
+    tied &= big.num_leaves[:, None] == leaves[None, :]
+    rank = np.where(tied, big.bfs_rank[:, None], -1).max(0)
+    slot = np.argmax(tied & (big.bfs_rank[:, None] == rank[None, :]), axis=0)
+    return best, slot, num_best, hu[slot, np.arange(len(slot))]
+
+
+def same_arrays(what, got, want):
+    for g, w in zip(got, want):
+        if not np.array_equal(np.asarray(g), np.asarray(w)):
+            raise AssertionError(f"{what}: outputs differ")
+
+
+def phase_bigmat_pandemic(kern, device, n_nodes=1_000_000, n_sites=30_000):
+    ps = kern.ps
+    rng = np.random.default_rng(11)
+    B, K, K_slots, B_x8, B_cols = 1024, 24, 32, 256, 64
+    t0 = time.perf_counter()
+    big = synth_bigmat(rng, n_nodes, n_sites, device=device)
+    pos, gval, kmiss = big_samples(rng, big, B, K, K_slots)
+    setup_s = time.perf_counter() - t0
+    occ = np.diff(big.csc_ptr)
+
+    # X5 on every sample; the first call uploads the CSC and epoch arrays
+    t0 = time.perf_counter()
+    res = big.place_arrays(pos, gval, kmiss)
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    x5_ms = median_ms(lambda: big.place_arrays(pos, gval, kmiss), runs=3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # X8 on the first 256, reduced on the host with the engine's rules
+    t0 = time.perf_counter()
+    s_T, nc_T, _ = big.score_batch_T(pos[:B_x8], gval[:B_x8], kmiss[:B_x8])
+    x8_s = time.perf_counter() - t0
+    same_arrays("X5 vs X8 + host tie-break", [r[:B_x8] for r in res],
+                host_reduce(big, s_T, nc_T))
+    # the host engine on 4 samples
+    for b in range(4):
+        sl = slice(b, b + 1)
+        if big.place_one_host(pos[sl], gval[sl], kmiss[sl]) != tuple(
+                r[b].item() for r in res):
+            raise AssertionError(f"place_one_host disagrees on sample {b}")
+    # the column path (B1-spr kernel) against the interval engine
+    p64, g64, k64 = pos[:B_cols], gval[:B_cols], kmiss[:B_cols]
+    t0 = time.perf_counter()
+    c_T = big.score_batch_T_cols(p64, g64, k64)
+    cols_s = time.perf_counter() - t0
+    same_arrays("score_batch_T_cols vs score_batch_T", c_T[:2],
+                (s_T[:, :B_cols], nc_T[:, :B_cols]))
+    g_spr = g64.copy()
+    g_spr[:, :K] = rng.integers(1, 16, size=(B_cols, K), dtype=np.uint8)
+    t0 = time.perf_counter()
+    spr_iv = big.score_spr_T(p64, g_spr)
+    spr_x8_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spr_cols = big.score_spr_T_cols(p64, g_spr)
+    spr_cols_s = time.perf_counter() - t0
+    same_arrays("score_spr_T_cols vs score_spr_T", spr_cols, spr_iv)
+    launches = kern.counts()          # end of the BigMAT path's window
+    if launches["B1-spr"] < 1 or launches["B1"] < 1:
+        raise AssertionError(f"column path launches {launches}: expected "
+                             "B1 (spr=False) and B1-spr >= 1")
+    del s_T, nc_T, c_T, spr_iv, spr_cols
+
+    # the kernel at the column path's own shape against its plain twin
+    cols = np.unique(p64[p64 < big.P])
+    shape = {}
+    for spr, g in ((True, g_spr), (False, g64)):
+        args = big._cols_inputs(p64, g, k64, cols, spr)
+        st_c, stp_c = ps.cols_states(*args[:5])
+        b1 = (st_c, stp_c, args[4], *args[5:])
+        name = "B1-spr" if spr else "B1"
+        kern.err[name] = max(kern.err[name], max_abs_err(
+            ps.score_entries_T(*b1, spr=spr),
+            ps.score_entries_T_plain(*b1, spr=spr)))
+        torch.cuda.synchronize()
+        if spr:
+            kern.ms["bigmat_pandemic"] = {"B1-spr": (
+                median_ms(lambda: ps.score_entries_T(*b1, spr=True)),
+                median_ms(lambda: ps.score_entries_T_plain(*b1, spr=True)))}
+            shape = {"N": int(st_c.shape[0]), "C": int(st_c.shape[1]),
+                     "B": B_cols, "K": K_slots}
+            # both modes at this shape on multi-base path states, where
+            # they must part (the tree's own states are single bases)
+            del stp_c
+            st_a, stp_a = ambiguous_states(st_c, args[2], args[3], 7)
+            del st_c
+            kern.compare_b1((st_a, stp_a, *b1[2:]), ambiguous=True)
+            del st_a, stp_a
+        else:
+            del st_c, stp_c
+        del b1, args
+    torch.cuda.empty_cache()
+    ms, plain_ms = kern.ms["bigmat_pandemic"]["B1-spr"]
+    return {"N": big.N, "P": big.P, "mutations": int(len(big.mut_col)),
+            "max_depth": big.max_depth, "max_occupancy": int(occ.max()),
+            "B": B, "K": K, "K_slots": K_slots, "setup_s": setup_s,
+            "place_arrays_first_s": first_s,
+            "place_arrays_ms_per_1024": x5_ms, "place_arrays_peak_gb": peak_gb,
+            "x8_score_batch_T_256_s": x8_s,
+            "cols_score_batch_T_cols_64_s": cols_s,
+            "x8_score_spr_T_64_s": spr_x8_s,
+            "cols_score_spr_T_cols_64_s": spr_cols_s,
+            "checks": "X5 == X8 + host tie-break (256), == place_one_host "
+                      "(4); cols == interval (64, both modes)",
+            "launches": launches, "b1_spr_shape": shape,
+            "b1_spr_ms": ms, "b1_spr_plain_ms": plain_ms,
+            "max_abs_err": {"B1-spr": kern.err["B1-spr"],
+                            "B1": kern.err["B1"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -559,7 +886,7 @@ def main() -> int:
     T, pb, vcf, setup = realistic_setup(genome, 1024, 5)
     log(f"realistic setup: {json.dumps(setup)}")
 
-    # --- the main path: the counters cover exactly these CLI runs ---------
+    # --- the dense main path: the counters cover exactly these CLI runs --
     kern.reset_counts()
     phase("fixture_e2e", phase_fixture_e2e, kern)
     wall, stages, out_dir = run_realistic_cli(pb, vcf, 64)
@@ -572,6 +899,16 @@ def main() -> int:
                     stage_seconds={k: round(v, 3) for k, v in stages.items()})
 
     phase("realistic_e2e", realistic)
+    del T, genome
+
+    # --- the BigMAT path: the counters cover these CLI runs and the ------
+    # --- pandemic phase's scoring calls (read inside that phase) ---------
+    kern.reset_counts()
+    phase("bigmat_fixture", phase_bigmat_fixture)
+    phase("bigmat_realistic", phase_bigmat_realistic, pb, vcf, out_dir, 64)
+    pandemic = phase("bigmat_pandemic", phase_bigmat_pandemic, kern, device)
+    big_counts = pandemic["launches"]
+    # ----------------------------------------------------------------------
 
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
@@ -586,6 +923,10 @@ def main() -> int:
          "replaces": "usher_tpu/ops/placement_pallas.py:119",
          "launches": counts["B2"], "max_abs_err": kern.err["B2"],
          "ms": genome_ms["B2"][0], "plain_ms": genome_ms["B2"][1]},
+        {"name": "B1-spr score_cols_T", "route": "cuda", "source": src,
+         "replaces": "usher_tpu/ops/placement_pallas.py:416",
+         "launches": big_counts["B1-spr"], "max_abs_err": kern.err["B1-spr"],
+         "ms": pandemic["b1_spr_ms"], "plain_ms": pandemic["b1_spr_plain_ms"]},
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -4,8 +4,10 @@
   2) place new_samples.vcf onto it
 
 The placement outputs byte-match the committed smoke goldens, and every
-output file equals the JAX CLI's under -p, -M 2, -k 5 and -s.  The engine's
-sparse and dense backends agree with the JAX engine on random MATs.
+output file equals the JAX CLI's under -p, -M 2, -k 5 and -s, and with
+--bigmat (the CSR BigMAT engine) under no flag, -s, -p and -k 5.  The
+engine's sparse and dense backends agree with the JAX engine on random
+MATs.
 """
 
 import os
@@ -25,6 +27,9 @@ GLOBAL_NH = os.path.join(REFERENCE_TEST_DIR, "global_phylo.nh")
 GLOBAL_VCF = os.path.join(REFERENCE_TEST_DIR, "global_samples.vcf")
 NEW_VCF = os.path.join(REFERENCE_TEST_DIR, "new_samples.vcf")
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens")
+GOLDEN_OF = [("placement_stats.tsv", "smoke_placement_stats.tsv"),
+             ("final-tree.nh", "smoke_final_tree.nh"),
+             ("mutation-paths.txt", "smoke_mutation_paths.txt")]
 
 
 @pytest.fixture(autouse=True)
@@ -68,9 +73,7 @@ def test_place_matches_goldens(built, tmp_path):
     assert torch_main(["-i", built, "-v", NEW_VCF, "-o",
                        os.path.join(outdir, "o.pb"), "-d", outdir,
                        "--mesh-devices", "0"]) == 0
-    for fname, gname in [("placement_stats.tsv", "smoke_placement_stats.tsv"),
-                         ("final-tree.nh", "smoke_final_tree.nh"),
-                         ("mutation-paths.txt", "smoke_mutation_paths.txt")]:
+    for fname, gname in GOLDEN_OF:
         with open(os.path.join(outdir, fname), "rb") as a, \
                 open(os.path.join(GOLDENS, gname), "rb") as b:
             assert a.read() == b.read(), f"{fname} deviates from golden"
@@ -91,8 +94,28 @@ def test_place_matches_jax_cli(built, tmp_path, flags):
         assert outs[1][fname] == outs[0][fname], f"{fname} differs"
 
 
+@pytest.mark.parametrize("flags", [[], ["-s"], ["-p"], ["-k", "5"]])
+def test_bigmat_cli_matches_jax_cli(built, tmp_path, flags, capsys):
+    """--bigmat: every output file equals the JAX CLI's --bigmat run, and
+    without extra flags the placement files byte-match the goldens."""
+    outs = []
+    for name, main in (("jax", jax_main), ("torch", torch_main)):
+        outdir = str(tmp_path / name)
+        assert main(["-i", built, "-v", NEW_VCF, "-d", outdir, "--bigmat",
+                     *flags]) == 0
+        outs.append(_files(outdir))
+    assert "Using the CSR BigMAT engine" in capsys.readouterr().err
+    assert sorted(outs[1]) == sorted(outs[0])
+    for fname in outs[0]:
+        assert outs[1][fname] == outs[0][fname], f"{fname} differs"
+    if not flags:
+        for fname, gname in GOLDEN_OF:
+            with open(os.path.join(GOLDENS, gname), "rb") as f:
+                assert outs[1][fname] == f.read(), f"{fname} vs golden"
+
+
 def test_unported_modes_exit_with_error(built, tmp_path, capsys):
-    for flags in (["--pb-direct"], ["--bigmat"], ["--mesh-devices", "2"]):
+    for flags in (["--pb-direct"], ["--mesh-devices", "2"]):
         assert torch_main(["-i", built, "-v", NEW_VCF, "-d",
                            str(tmp_path), *flags]) == 1
         assert "not supported by the PyTorch port" in capsys.readouterr().err

@@ -15,8 +15,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "usher_tpu_torch",
     "usher_tpu_torch.cli.usher_cli",
+    "usher_tpu_torch.core.bigmat",
+    "usher_tpu_torch.ops.interval",
     "usher_tpu_torch.ops.placement_sparse",
     "usher_tpu_torch.ops.sankoff",
+    "usher_tpu_torch.placement.big_engine",
     "usher_tpu_torch.placement.driver",
 ]
 
@@ -40,7 +43,8 @@ def test_port_imports_no_jax_and_no_triton():
     for banned in ("jax", "jaxlib", "triton", "usher_tpu.parallel"):
         hits = [m for m in new if m == banned or m.startswith(banned + ".")]
         assert not hits, f"importing the port pulled in {hits[:5]}"
-    assert "usher_tpu_torch.ops.placement_sparse" in new
+    for name in PORT_MODULES[1:]:
+        assert name in new, name
     # the host layers the port shares with the JAX package
     assert "usher_tpu.core.tree" in mods["all"]
     assert "usher_tpu.placement.mapper" in mods["all"]

@@ -1,9 +1,9 @@
 """usher_tpu_torch.ops.placement_sparse against the JAX Pallas path.
 
-The plain twins of the B1/B2 kernels run on CPU tensors and must equal
-usher_tpu.ops.placement_pallas (Pallas in interpret mode) bit for bit on
-random MATs with ambiguous and missing entries, padding slots and inactive
-slots.  The CUDA kernels themselves are compared with the plain twins on the
+The plain twins of the B1/B1-spr/B2 kernels run on CPU tensors and must
+equal usher_tpu.ops.placement_pallas (Pallas in interpret mode) bit for bit
+on random MATs with ambiguous and missing entries, padding slots and
+inactive slots, and so must the BigMAT column path score_cols_T.  The CUDA kernels themselves are compared with the plain twins on the
 card by chip_smoke.py; here the kernels' host-side pieces (slot words, the
 per-block fold and the exact partial merge) are checked against a numpy
 emulation of the kernel loop.  Tolerance: none (integer arithmetic).
@@ -129,6 +129,74 @@ def test_wide_k_matches_dense(k_slots):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
+@pytest.mark.parametrize("seed", [50, 51, 52])
+def test_score_entries_spr_matches_pallas(seed):
+    """B1-spr's plain twin (spr=True) equals _score_entries_T(spr=True) on
+    the same st/stp, ambiguous masks and padding slots included; spr=False
+    equals it too.  Path states here are random ambiguity masks (Fitch
+    sets), where the two modes' base terms differ, and they do."""
+    jflat, flat, samples = _case(seed, n_leaves=30)
+    rng = np.random.default_rng(seed)
+    _, parent = flat.sync()
+    st = _t(rng.integers(1, 16, size=tuple(flat.st_host.shape),
+                         dtype=np.uint8))
+    stp = dev.parent_states(st, parent, flat.root_slot)
+    base, nc_base, _ = ps.row_reductions(st, stp, flat.ref_dev)
+    pos, gval, kmiss = ps.sparsify(samples, flat.pos_index, flat.P_pad)
+    nonpad = pos < flat.P
+    gval[nonpad] = rng.integers(1, 16, size=int(nonpad.sum()),
+                                dtype=np.uint8)
+    kmiss[:] = False
+    outs = {}
+    for spr in (False, True):
+        want = pp._score_entries_T(st.numpy(), stp.numpy(), flat.ref,
+                                   base.numpy(), nc_base.numpy(), pos, gval,
+                                   kmiss, pos.shape[1], spr=spr)
+        got = ps.score_entries_T(st, stp, flat.ref_dev, base, nc_base,
+                                 _t(pos), _t(gval), _t(kmiss), spr=spr)
+        for g_, w_ in zip(got, want):
+            np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
+        outs[spr] = got[0]
+    assert not torch.equal(outs[False], outs[True])
+
+
+@pytest.mark.parametrize("seed,spr", [(60, False), (61, True), (62, True)])
+def test_score_cols_T_matches_pallas(seed, spr):
+    """score_cols_T (pointer-doubled column states + B1 / B1-spr plain
+    twin) equals placement_pallas.score_cols_T on a BigMAT's columns, with
+    padding slots mapped past the column axis."""
+    from usher_tpu.core.bigmat import BigMAT, _ranges
+    rng = np.random.default_rng(seed)
+    T, ref = random_mat(rng, n_leaves=35, n_positions=20)
+    positions = np.array(sorted(ref), dtype=np.int64)
+    refarr = np.array([ref[p] for p in positions.tolist()], dtype=np.uint8)
+    big = BigMAT.from_tree(T, positions, refarr)
+    samples = [random_sample(rng, ref, 5) for _ in range(4)]
+    pos, gval, kmiss = big.sparsify(samples)
+    cols = np.unique(pos[pos < big.P])
+    C, C_pad = len(cols), 32
+    lo, hi = big.csc_ptr[cols], big.csc_ptr[cols + 1]
+    flat_idx = np.repeat(lo, hi - lo) + _ranges(hi - lo)
+    m0 = np.zeros((big.N, C_pad), np.uint8)
+    m0[big.csc_node[flat_idx], np.repeat(np.arange(C), hi - lo)] = np.where(
+        big.csc_eff[flat_idx], big.csc_mut[flat_idx], 0)
+    ref_cols = np.zeros(C_pad, np.uint8)
+    ref_cols[:C] = big.ref[cols]
+    col_of = np.full(big.P + 1, C_pad, np.int32)
+    col_of[cols] = np.arange(C, dtype=np.int32)
+    pos_cols = col_of[np.minimum(pos, big.P)]
+    base = big.base_spr if spr else big.base
+    want = pp.score_cols_T(m0, big.anc, big.parent, np.int32(big.root_slot),
+                           ref_cols, base, big.nc_base, pos_cols, gval,
+                           kmiss, pos.shape[1], big.n_anc, spr=spr)
+    got = ps.score_cols_T(_t(m0), _t(big.anc), _t(big.parent),
+                          big.root_slot, _t(ref_cols), _t(base),
+                          _t(big.nc_base), _t(pos_cols), _t(gval),
+                          _t(kmiss), spr=spr)
+    for g_, w_ in zip(got, want):
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
+
+
 def test_slot_words_layout():
     """The packed slot word decodes to the fields the kernels read, with
     padding slots marked invalid and a ref nibble of 8 in the sign bit."""
@@ -223,8 +291,9 @@ def test_kernel_wrappers_never_fall_back(monkeypatch, tmp_path):
     slots = (torch.empty((B, K), dtype=torch.int32, **kw),
              torch.empty((B, K), dtype=torch.uint8, **kw),
              torch.empty((B, K), dtype=torch.bool, **kw))
-    with pytest.raises(ValueError, match="no B1 kernel"):
-        ps.score_entries_T(*args, *slots)
+    for spr in (False, True):
+        with pytest.raises(ValueError, match="no B1 kernel"):
+            ps.score_entries_T(*args, *slots, spr=spr)
     node = tuple(torch.empty((N,), dtype=dt, **kw) for dt in (
         torch.int32, torch.bool, torch.bool, torch.bool, torch.int32,
         torch.int32))

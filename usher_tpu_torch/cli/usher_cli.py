@@ -3,8 +3,8 @@ parsimony, on the device that USHER_TPU_PLATFORM names (cuda by default).
 
 Counterpart of usher_tpu/cli/usher_cli.py with the same flags and messages;
 the flag surface mirrors the reference `usher` binary (src/usher.cpp:47-86).
-The classic Tree path is ported; --pb-direct, --bigmat and a mesh of more
-than one device are later slices and exit with an error.
+The classic Tree path and its --bigmat engine are ported; --pb-direct and a
+mesh of more than one device are later slices and exit with an error.
 """
 
 from __future__ import annotations
@@ -69,7 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pb-direct", action="store_true",
                    help="No-Tree serving path over BigMAT (not ported yet)")
     p.add_argument("--bigmat", action="store_true",
-                   help="Use the CSR BigMAT engine (not ported yet)")
+                   help="Use the CSR BigMAT engine (pandemic-scale path)")
     p.add_argument("--version", action="version",
                    version="usher-torch (v0.1.0)")
     return p
@@ -82,8 +82,7 @@ def main(argv=None) -> int:
     if args.distributed or os.environ.get("USHER_TPU_DISTRIBUTED"):
         raise NotImplementedError("multi-host placement is not ported yet "
                                   "(ROADMAP A11, multi-GPU)")
-    for flag, on, slice_ in (("--pb-direct", args.pb_direct, "A6"),
-                             ("--bigmat", args.bigmat, "A6"),
+    for flag, on, slice_ in (("--pb-direct", args.pb_direct, "A6b"),
                              ("--mesh-devices N>1", args.mesh_devices > 1,
                               "A11")):
         if on:

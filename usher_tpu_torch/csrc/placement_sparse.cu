@@ -14,6 +14,14 @@
 // B1 usher_score_entries_T replaces usher_tpu/ops/placement_pallas.py::_kernel
 //    (reached through _score_entries_T): it writes the node-major [N, B]
 //    score and num_common matrices.
+// B1-spr is B1 with spr = 1: the SPR semantics of the `sub` term
+//    (usher_tpu/ops/placement_pallas.py::_corr_tiles with spr=True), run
+//    over a batch's column subset.  It replaces
+//    usher_tpu/ops/placement_pallas.py::score_cols_T, which reaches the
+//    Pallas kernel through _score_entries_T(spr=...); the BigMAT column
+//    path (usher_tpu_torch/core/bigmat.py::_score_chunk) calls it with the
+//    pointer-doubled [N, C] column states as st/stp.  What bounds it is the
+//    same as for B1: reading the N x C packed bytes of st and stp once.
 // B2 usher_placement_partials replaces
 //    usher_tpu/ops/placement_pallas.py::_kernel_reduce (reached through
 //    placement_step_sparse): it adds placement validity and a per-node-block
@@ -97,7 +105,9 @@ __device__ void stage_rows(uint8_t* __restrict__ sm,
 }
 
 // Sum of the K slot corrections of sample b against one packed node row
-// (the correction terms of placement_pallas.py::_corr_tiles, spr=False).
+// (the correction terms of placement_pallas.py::_corr_tiles; kSpr selects
+// the SPR base semantics of the `sub` term).
+template <bool kSpr>
 __device__ __forceinline__ void entry_sums(const uint8_t* __restrict__ row,
                                            const uint32_t* __restrict__ slots,
                                            int b, int B, int K,
@@ -117,8 +127,11 @@ __device__ __forceinline__ void entry_sums(const uint8_t* __restrict__ row,
     const bool matched_r = (rk & s) != 0u;
     const uint32_t a = (bm && !matched) ? sp : s;
     const int term1 = (!km && (gv & a) == 0u) ? 1 : 0;
-    // what this column contributed to base[n] (the no-entry term, g == ref)
-    const int sub = (bm && !matched_r) ? (sp != rk) : (s != rk);
+    // what this column contributed to base[n] (the g == ref term): the
+    // placement no-entry term A_r != ref, or in SPR mode the
+    // E=1-everywhere term (ref & A_r) == 0
+    const uint32_t a_r = (bm && !matched_r) ? sp : s;
+    const int sub = kSpr ? (int)((rk & a_r) == 0u) : (int)(a_r != rk);
     c += term1 - sub;
     n += (int)(bm && matched) - (int)(bm && matched_r);
   }
@@ -126,8 +139,10 @@ __device__ __forceinline__ void entry_sums(const uint8_t* __restrict__ row,
   ns = n;
 }
 
-// B1: one block per `rows` node rows; work items (row, b) with b fastest so
-// that slot-word loads and output stores coalesce over b.
+// B1 (kSpr false) and B1-spr (kSpr true): one block per `rows` node rows;
+// work items (row, b) with b fastest so that slot-word loads and output
+// stores coalesce over b.
+template <bool kSpr>
 __global__ void __launch_bounds__(kThreads)
 score_entries_kernel(const uint8_t* __restrict__ st,
                      const uint8_t* __restrict__ stp,
@@ -148,7 +163,7 @@ score_entries_kernel(const uint8_t* __restrict__ st,
     const int r = (int)(i / B);
     const int b = (int)(i - (long long)r * B);
     int cs, ns;
-    entry_sums(sm + (size_t)r * pitch, slots, b, B, K, cs, ns);
+    entry_sums<kSpr>(sm + (size_t)r * pitch, slots, b, B, K, cs, ns);
     const long long n = n0 + r;
     const size_t o = (size_t)n * B + b;
     score_t[o] = base[n] + cs;
@@ -189,7 +204,7 @@ placement_partials_kernel(const uint8_t* __restrict__ st,
       const int flags = m.w;
       if (!(flags & 1)) continue;  // inactive rows are never valid
       int cs, ns;
-      entry_sums(sm + (size_t)r * pitch, slots, b, B, K, cs, ns);
+      entry_sums<false>(sm + (size_t)r * pitch, slots, b, B, K, cs, ns);
       const int score = base[n] + cs;
       const int nc = nc_base[n] + ns;
       const bool leaf = (flags >> 1) & 1;
@@ -237,27 +252,42 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+template <bool kSpr>
+cudaError_t launch_score_entries(const void* st, const void* stp,
+                                 const void* base, const void* nc_base,
+                                 const void* slots, long long N, int P, int B,
+                                 int K, int rows, void* score_t, void* nc_t,
+                                 cudaStream_t stream) {
+  const int pitch = pitch_of(P);
+  const size_t smem = (size_t)rows * pitch;
+  cudaError_t err = set_smem(score_entries_kernel<kSpr>, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (N + rows - 1) / rows;
+  score_entries_kernel<kSpr><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      (const uint8_t*)st, (const uint8_t*)stp, (const int32_t*)base,
+      (const int32_t*)nc_base, (const uint32_t*)slots, N, P, pitch, B, K, rows,
+      use_vec(st, stp, P), (int32_t*)score_t, (int32_t*)nc_t);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Returns the launch's cudaError_t (0 on success); never synchronises.
+// spr != 0 selects B1-spr (the SPR `sub` term).
 int usher_score_entries_T(const void* st, const void* stp, const void* base,
                           const void* nc_base, const void* slots, long long N,
-                          int P, int B, int K, int rows, void* score_t,
-                          void* nc_t, void* stream) {
+                          int P, int B, int K, int rows, int spr,
+                          void* score_t, void* nc_t, void* stream) {
   if (N <= 0 || B <= 0) return (int)cudaSuccess;
-  const int pitch = pitch_of(P);
-  const size_t smem = (size_t)rows * pitch;
-  cudaError_t err = set_smem(score_entries_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (N + rows - 1) / rows;
-  score_entries_kernel<<<(unsigned)blocks, kThreads, smem,
-                         (cudaStream_t)stream>>>(
-      (const uint8_t*)st, (const uint8_t*)stp, (const int32_t*)base,
-      (const int32_t*)nc_base, (const uint32_t*)slots, N, P, pitch, B, K, rows,
-      use_vec(st, stp, P), (int32_t*)score_t, (int32_t*)nc_t);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(spr ? launch_score_entries<true>(st, stp, base, nc_base, slots,
+                                                N, P, B, K, rows, score_t,
+                                                nc_t, s)
+                   : launch_score_entries<false>(st, stp, base, nc_base,
+                                                 slots, N, P, B, K, rows,
+                                                 score_t, nc_t, s));
 }
 
 int usher_placement_partials(const void* st, const void* stp, const void* base,

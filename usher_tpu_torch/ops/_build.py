@@ -31,7 +31,7 @@ _LL = ctypes.c_longlong
 # name -> argtypes of every C entry point in csrc/ (each returns cudaError_t)
 SIGNATURES = {
     "usher_score_entries_T":
-        [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _P],
     "usher_placement_partials":
         [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }

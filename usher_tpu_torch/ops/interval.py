@@ -1,0 +1,340 @@
+"""DFS-interval scoring, the pandemic-scale placement engine (counterpart of
+usher_tpu/ops/interval.py; the derivation is in its docstring).
+
+At an entry column c the per-(sample, node) correction is a function of
+(st, stp) at (node, c), and st is piecewise constant over the nested DFS
+intervals that the column's branch mutations cut.  So for a batch
+
+  score_T[n, b] = base[n] + add0[b] + cumsum_over_dfs(diff)[dfs(n), b]
+  nc_T[n, b]    = nc_base[n] + point_scatter[dfs(n), b]
+
+where ``diff`` gets, for every (sample entry, column mutation) pair, a range
+delta over the mutation node's DFS interval and a width-1 delta at the node
+itself.  Everything here is plain torch on the device of its inputs:
+
+  X4 ``_scan_rows``        an inclusive int32 cumsum over DFS rows
+  X8 ``interval_scores`` / ``interval_place``
+                           host-expanded event streams -> matrices / winners
+  X5 ``interval_place_dev``
+                           the events expanded on the device from the
+                           resident CSC index, then the same reduction
+
+Scatter-adds target an explicit dump row ``n_pad`` (row count n_pad + 1):
+padding pairs and range ends past the last row land there and are never
+read.  They accumulate through a flat ``index_add_`` on int32, where JAX
+used ``.at[].add``.  ``_finish_place`` adds validity, the tie-broken argmin,
+the optional runner-up and the optional tie-set clade histogram, so only
+O(B) vectors leave the device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+BIG = 1 << 30
+SCAN_BLOCK = 1024   # rows per block of the two-level scan
+
+
+def _scan_rows(d):
+    """Inclusive cumsum along axis 0 of an int32 [R, B] tensor, int32 out
+    (torch.cumsum would widen to int64 without the dtype).
+
+    Two torch.cumsum passes: within blocks of SCAN_BLOCK rows, then over
+    the block totals.  torch scans the outer axis of an [R, B] tensor with
+    one thread per column walking all R rows, so one pass over [1M, 1024]
+    keeps only 1,024 threads busy; blocked, it runs R / SCAN_BLOCK times as
+    many.  Integer adds, so the result is exact whatever the order."""
+    R, B = d.shape
+    nb = R // SCAN_BLOCK
+    if nb < 2:
+        return torch.cumsum(d, dim=0, dtype=torch.int32)
+    body = nb * SCAN_BLOCK
+    out = torch.empty((R, B), dtype=torch.int32, device=d.device)
+    within = out[:body].view(nb, SCAN_BLOCK, B)
+    torch.cumsum(d[:body].reshape(nb, SCAN_BLOCK, B), dim=1,
+                 dtype=torch.int32, out=within)
+    carry = torch.cumsum(within[:, -1, :], dim=0, dtype=torch.int32)
+    within[1:] += carry[:-1, None, :]
+    if body < R:
+        torch.cumsum(d[body:], dim=0, dtype=torch.int32, out=out[body:])
+        out[body:] += carry[-1]
+    return out
+
+
+def _scatter_add(dst, rows, cols, vals):
+    """dst[rows, cols] += vals for a contiguous int32 [R, W] tensor;
+    duplicate (row, col) pairs accumulate."""
+    W = dst.shape[1]
+    flat = rows.reshape(-1).long() * W + cols.reshape(-1).long()
+    dst.view(-1).index_add_(0, flat, vals.reshape(-1).to(torch.int32))
+
+
+def interval_scores(ev_idx, ev_b, ev_val, nc_idx, nc_b, nc_val,
+                    base_dfs, nc_base_dfs, add0, n_pad: int, b_pad: int):
+    """Score + num_common matrices in DFS order.
+
+    ev_idx/ev_b/ev_val [R] int  difference-array events (idx in 0..n_pad;
+                                idx == n_pad is the dump row)
+    nc_*               [Rn] int num_common point events (idx in 0..n_pad)
+    base_dfs, nc_base_dfs [n_pad] int32, add0 [b_pad] int32
+    Returns (score_dfs [n_pad, b_pad], nc_dfs [n_pad, b_pad]) int32.
+    """
+    dev = base_dfs.device
+    diff = torch.zeros((n_pad + 1, b_pad), dtype=torch.int32, device=dev)
+    _scatter_add(diff, ev_idx, ev_b, ev_val)
+    score = _scan_rows(diff[:n_pad])
+    del diff
+    score += base_dfs[:, None]
+    score += add0[None, :]
+    ncd = torch.zeros((n_pad + 1, b_pad), dtype=torch.int32, device=dev)
+    _scatter_add(ncd, nc_idx, nc_b, nc_val)
+    nc = ncd[:n_pad]
+    nc += nc_base_dfs[:, None]
+    return score, nc
+
+
+def _tie_reduce(score, valid, num_leaves, bfs_rank):
+    """Tie-broken argmin over the node axis (axis 0) of [N, B] inputs:
+    min score, then max subtree leaves, then max BFS rank (the reference's
+    sequential-order winner, usher_mapper.cpp:458-497).  The winner row is
+    the first row holding the winning rank (torch.argmax returns the first
+    maximum, as jnp.argmax does; it takes no bool, hence the uint8)."""
+    best = torch.where(valid, score, BIG).min(0).values
+    is_best = valid & (score == best[None, :])
+    num_best = is_best.sum(0, dtype=torch.int32)
+    best_leaves = torch.where(is_best, num_leaves[:, None], -1).max(0).values
+    is_best &= num_leaves[:, None] == best_leaves[None, :]
+    best_rank = torch.where(is_best, bfs_rank[:, None], -1).max(0).values
+    is_best &= bfs_rank[:, None] == best_rank[None, :]
+    best_row = torch.argmax(is_best.to(torch.uint8), dim=0)
+    return best, best_row.to(torch.int32), num_best
+
+
+def _clade_hist(score, nc, valid, hu, best, is_leaf_dfs,
+                clade_self_dfs, clade_par_dfs, n_clades: int):
+    """Per-sample clade histogram over the tie set: hist[a, c, b] = number
+    of tied nodes whose clade in annotation column a is c.  A tied node
+    counts its parent's clade when it is a leaf or has unique mutations
+    (include_self = !leaf && !hu, usher_common.cpp:600-619)."""
+    A = clade_self_dfs.shape[0]
+    n_pad, b_pad = score.shape
+    tie = (valid & (score == best[None, :])).to(torch.int32)
+    use_par = is_leaf_dfs[:, None] | hu
+    bcol = torch.arange(b_pad, device=score.device).expand(n_pad, b_pad)
+    hists = []
+    for a in range(A):
+        sel = torch.where(use_par, clade_par_dfs[a][:, None],
+                          clade_self_dfs[a][:, None])
+        h = torch.zeros((n_clades, b_pad), dtype=torch.int32,
+                        device=score.device)
+        _scatter_add(h, sel, bcol, tie)
+        hists.append(h)
+    return torch.stack(hists)
+
+
+def _finish_place(score, nc, num_mut_dfs, is_leaf_dfs, is_root_dfs,
+                  active_dfs, num_leaves_dfs, bfs_rank_dfs,
+                  second: bool = False, clades=None):
+    """Placement validity (usher_mapper.cpp:452-455) + tie-broken argmin +
+    the winner's has_unique.  Returns (best [B], best_row [B], num_best
+    [B]) int32 and hu_best [B] bool.
+
+    second=True appends the runner-up 4-tuple with the winner's row masked
+    out; clades=(clade_self_dfs [A, n_pad], clade_par_dfs [A, n_pad],
+    n_clades) appends the tie-set histogram [A, n_clades, b_pad]."""
+    hu = nc < num_mut_dfs[:, None]
+    nc_pos = nc > 0
+    leaf = is_leaf_dfs[:, None]
+    valid = (is_root_dfs[:, None]
+             | (leaf & nc_pos)
+             | (~leaf & hu & nc_pos)
+             | (~leaf & ~hu)) & active_dfs[:, None]
+    del nc_pos
+    best, best_row, num_best = _tie_reduce(score, valid, num_leaves_dfs,
+                                           bfs_rank_dfs)
+    hu_best = torch.gather(hu, 0, best_row.long()[None, :])[0]
+    out = (best, best_row, num_best, hu_best)
+    if second:
+        rows = torch.arange(score.shape[0], device=score.device)[:, None]
+        valid2 = valid & (rows != best_row[None, :])
+        best2, best_row2, num_best2 = _tie_reduce(
+            score, valid2, num_leaves_dfs, bfs_rank_dfs)
+        del valid2
+        hu2 = torch.gather(hu, 0, best_row2.long()[None, :])[0]
+        out = out + (best2, best_row2, num_best2, hu2)
+    if clades is not None:
+        clade_self_dfs, clade_par_dfs, n_clades = clades
+        out = out + (_clade_hist(score, nc, valid, hu, best, is_leaf_dfs,
+                                 clade_self_dfs, clade_par_dfs, n_clades),)
+    return out
+
+
+def interval_place(ev_idx, ev_b, ev_val, nc_idx, nc_b, nc_val,
+                   base_dfs, nc_base_dfs, add0,
+                   num_mut_dfs, is_leaf_dfs, is_root_dfs, active_dfs,
+                   num_leaves_dfs, bfs_rank_dfs,
+                   n_pad: int, b_pad: int, second: bool = False,
+                   clade_self_dfs=None, clade_par_dfs=None,
+                   n_clades: int = 0):
+    """X8 fused: interval scoring of host-expanded events + placement
+    validity + tie-broken argmin.  Returns (best_score [B], best_dfs_row
+    [B], num_best [B], hu_best [B]); second=True appends the runner-up
+    4-tuple, n_clades > 0 the tie-set clade histogram (_finish_place)."""
+    score, nc = interval_scores(ev_idx, ev_b, ev_val, nc_idx, nc_b, nc_val,
+                                base_dfs, nc_base_dfs, add0, n_pad, b_pad)
+    clades = (None if n_clades == 0
+              else (clade_self_dfs, clade_par_dfs, n_clades))
+    return _finish_place(score, nc, num_mut_dfs, is_leaf_dfs, is_root_dfs,
+                         active_dfs, num_leaves_dfs, bfs_rank_dfs,
+                         second=second, clades=clades)
+
+
+def _expand_events(csc_ptr, csc_node, csc_meta, pos, gval, kmiss, P: int,
+                   mc: int):
+    """Device-side expansion of every (entry, column-mutation) pair from the
+    resident CSC index; mc bounds the column occupancy (pairs past a
+    column's count are masked off).  csc_meta packs per-mutation fields
+    am | ap<<4 | root<<8 | eff<<9 | dead<<10.  Returns the [B, K, mc]
+    fields (u, am, ap, rootm, effm, pair_ok) and the [B, K, 1] gval/kmiss
+    views (gv int32, km bool)."""
+    valid_e = pos < P
+    cols = pos.clamp(0, P - 1).long()
+    lo = csc_ptr[cols].long()                              # [B, K]
+    cnt = torch.where(valid_e, csc_ptr[cols + 1].long() - lo, 0)
+    j = torch.arange(mc, device=pos.device)
+    pair_ok = j < cnt[:, :, None]
+    flat = (lo[:, :, None] + j).clamp(0, csc_node.shape[0] - 1)
+    u = csc_node[flat].long()
+    m = csc_meta[flat]
+    am = m & 0xF
+    ap = (m >> 4) & 0xF
+    rootm = (m >> 8) & 1
+    effm = (m >> 9) & 1
+    pair_ok &= ((m >> 10) & 1) == 0                        # tombstoned
+    gv = gval.to(torch.int32)[:, :, None]
+    km = kmiss[:, :, None]
+    return u, am, ap, rootm, effm, pair_ok, gv, km
+
+
+def _entry_deltas(csc_ptr, csc_node, csc_meta, dfs_of, dfs_end_of,
+                  ref_cols, pos, gval, kmiss, n_pad: int, mc: int,
+                  spr: bool):
+    """Expansion + delta evaluation for one entry batch (the case analysis
+    of core/bigmat.py _events): returns (r, rend, flat_b, d_range,
+    d_point, d_nc, add0) ready to scatter, with r/rend on the dump row
+    n_pad for masked pairs."""
+    P = ref_cols.shape[0]
+    B, K = pos.shape
+    u, am, ap, rootm, effm, pair_ok, gv, km = _expand_events(
+        csc_ptr, csc_node, csc_meta, pos, gval, kmiss, P, mc)
+    valid_e = pos < P
+    cols = pos.clamp(0, P - 1).long()
+    rk_e = torch.where(valid_e, ref_cols[cols].to(torch.int32), 0)
+    rk = rk_e[:, :, None]
+
+    def corr_nobm(a):
+        t1 = (~km & ((gv & a) == 0)).to(torch.int32)
+        if spr:
+            sub = ((rk & a) == 0).to(torch.int32)
+        else:
+            sub = (a != rk).to(torch.int32)
+        return t1 - sub
+
+    c_am = corr_nobm(am)
+    d_range = c_am - corr_nobm(ap)
+    matched = (gv & am) != 0
+    a_eff = torch.where(matched, am, ap)
+    t1_bm = (~km & ((gv & a_eff) == 0)).to(torch.int32)
+    if spr:
+        a_r = torch.where((rk & am) != 0, am, ap)
+        sub_bm = ((rk & a_r) == 0).to(torch.int32)
+    else:
+        sub_bm = torch.where((rk & am) != 0, (am != rk).to(torch.int32),
+                             (ap != rk).to(torch.int32))
+    d_point = torch.where(rootm == 1, 0, (t1_bm - sub_bm) - c_am)
+    d_nc = torch.where((effm == 1) & (rootm == 0),
+                       matched.to(torch.int32)
+                       - ((rk & am) != 0).to(torch.int32), 0)
+    ok = pair_ok.to(torch.int32)
+    d_range = d_range * ok
+    d_point = d_point * ok
+    d_nc = d_nc * ok
+
+    r = torch.where(pair_ok, dfs_of.long()[u], n_pad)
+    rend = torch.where(pair_ok, dfs_end_of.long()[u], n_pad)
+    flat_b = torch.arange(B, device=pos.device)[:, None, None].expand(
+        B, K, mc)
+    add0 = (~kmiss & valid_e
+            & ((gval.to(torch.int32) & rk_e) == 0)).sum(1, dtype=torch.int32)
+    return r, rend, flat_b, d_range, d_point, d_nc, add0
+
+
+def _dev_score_nc(csc_ptr, csc_node, csc_meta, dfs_of, dfs_end_of,
+                  ref_cols, pos, gval, kmiss,
+                  ov_idx, ov_b, ov_val, ovn_idx, ovn_b, ovn_val,
+                  base_dfs, nc_base_dfs, n_pad: int, b_pad: int, mc: int,
+                  spr: bool):
+    """Shared core of X5: device expansion, delta evaluation, the three
+    difference-array scatters and the nc point scatter (plus the
+    host-expanded overlay events of incremental appends), cumsum, add0.
+    Returns (score, nc) [n_pad, b_pad] int32 in DFS order."""
+    r, rend, flat_b, d_range, d_point, d_nc, add0 = _entry_deltas(
+        csc_ptr, csc_node, csc_meta, dfs_of, dfs_end_of, ref_cols,
+        pos, gval, kmiss, n_pad, mc, spr)
+    dev = base_dfs.device
+    diff = torch.zeros((n_pad + 1, b_pad), dtype=torch.int32, device=dev)
+    _scatter_add(diff, r, flat_b, d_range + d_point)
+    _scatter_add(diff, rend, flat_b, -d_range)
+    _scatter_add(diff, (r + 1).clamp(max=n_pad), flat_b, -d_point)
+    _scatter_add(diff, ov_idx, ov_b, ov_val)
+    ncd = torch.zeros((n_pad + 1, b_pad), dtype=torch.int32, device=dev)
+    _scatter_add(ncd, r, flat_b, d_nc)
+    _scatter_add(ncd, ovn_idx, ovn_b, ovn_val)
+    del r, rend, flat_b, d_range, d_point, d_nc
+    score = _scan_rows(diff[:n_pad])
+    del diff
+    score += base_dfs[:, None]
+    score[:, :add0.shape[0]] += add0[None, :]
+    nc = ncd[:n_pad]
+    nc += nc_base_dfs[:, None]
+    return score, nc
+
+
+def interval_place_dev(csc_ptr, csc_node, csc_meta, dfs_of, dfs_end_of,
+                       ref_cols, pos, gval, kmiss,
+                       ov_idx, ov_b, ov_val, ovn_idx, ovn_b, ovn_val,
+                       base_dfs, nc_base_dfs,
+                       num_mut_dfs, is_leaf_dfs, is_root_dfs, active_dfs,
+                       num_leaves_dfs, bfs_rank_dfs,
+                       n_pad: int, b_pad: int, mc: int, spr: bool = False,
+                       second: bool = False,
+                       clade_self_dfs=None, clade_par_dfs=None,
+                       n_clades: int = 0):
+    """X5: interval_place with the events expanded on the device from the
+    resident CSC index, so a batch uploads only its [B, K] entry arrays
+    plus the (small) overlay event streams of incremental appends.  Equal
+    to the host-expansion path (tested).  second=True appends the
+    runner-up 4-tuple; n_clades > 0 the tie-set clade histogram."""
+    score, nc = _dev_score_nc(
+        csc_ptr, csc_node, csc_meta, dfs_of, dfs_end_of, ref_cols,
+        pos, gval, kmiss, ov_idx, ov_b, ov_val, ovn_idx, ovn_b, ovn_val,
+        base_dfs, nc_base_dfs, n_pad, b_pad, mc, spr)
+    clades = (None if n_clades == 0
+              else (clade_self_dfs, clade_par_dfs, n_clades))
+    return _finish_place(score, nc, num_mut_dfs, is_leaf_dfs, is_root_dfs,
+                         active_dfs, num_leaves_dfs, bfs_rank_dfs,
+                         second=second, clades=clades)
+
+
+def pad_events(idx, b, val, n_pad: int):
+    """Host event arrays -> int32 numpy (idx, b, val).  The JAX engine
+    padded them up a x1.5 length ladder so XLA would not recompile; eager
+    torch takes any length, so nothing is added.  idx must lie in
+    0..n_pad (n_pad is the dump row): an index past it would be a
+    device-side assert on CUDA, so it raises here instead."""
+    idx = np.asarray(idx, dtype=np.int32)
+    if idx.size and (int(idx.min()) < 0 or int(idx.max()) > n_pad):
+        raise IndexError(f"event row outside 0..{n_pad}")
+    return (idx, np.asarray(b, dtype=np.int32),
+            np.asarray(val, dtype=np.int32))

@@ -8,17 +8,21 @@ no-entry position the (sample, node) term does not depend on the sample.  So
   nc[n,b]    = nc_base[n] + sum_k corr_nc(n, b, pos[b,k])
 
 with per-node row reductions base, nc_base (torch ops here) and corrections
-that read st/stp at the K entry columns only.  Two hand-written CUDA kernels
+that read st/stp at the K entry columns only.  Hand-written CUDA kernels
 (csrc/placement_sparse.cu) evaluate the corrections:
 
-  B1 ``score_entries_T``  the [N, B] score and num_common matrices
-  B2 ``placement_reduce`` B1 plus validity and the tie-broken argmin,
-                          through per-node-block partials merged here
+  B1     ``score_entries_T``  the [N, B] score and num_common matrices
+  B1-spr ``score_entries_T(spr=True)``, reached through ``score_cols_T``:
+                              B1 with the SPR base semantics, over the
+                              pointer-doubled column states of a CSR BigMAT
+  B2     ``placement_reduce`` B1 plus validity and the tie-broken argmin,
+                              through per-node-block partials merged here
 
 Each has a plain PyTorch twin (``*_plain``) built from column gathers
 ``st[:, pos_chunk]``, chunked over the batch.  The wrappers run the kernel on
 CUDA tensors and the plain twin on CPU tensors, and never fall back from one
-to the other; each counts its kernel launches in ``<wrapper>.launches``.
+to the other; each counts its kernel launches in ``<wrapper>.launches``
+(``score_entries_T.launches_spr`` counts the spr=True launches apart).
 """
 
 from __future__ import annotations
@@ -133,11 +137,14 @@ def _slot_fields(P, ref, pos):
 
 # --- B1: [N, B] score / num_common ------------------------------------------
 
-def score_entries_T_plain(st, stp, ref, base, nc_base, pos, gval, kmiss):
-    """Plain twin of B1.  st/stp [N,P] uint8, ref [P] uint8, base/nc_base
-    [N] int32, pos [B,K] int (slots with pos outside [0, P) are padding),
-    gval [B,K] uint8, kmiss [B,K] bool.  Returns (score_T, nc_T) [N,B]
-    int32."""
+def score_entries_T_plain(st, stp, ref, base, nc_base, pos, gval, kmiss,
+                          spr: bool = False):
+    """Plain twin of B1 (spr=False) and B1-spr (spr=True).  st/stp [N,P]
+    uint8, ref [P] uint8, base/nc_base [N] int32, pos [B,K] int (slots with
+    pos outside [0, P) are padding), gval [B,K] uint8, kmiss [B,K] bool.
+    spr selects what an entry column takes out of base: the placement
+    no-entry term (A_r != ref) or the SPR E=1-everywhere term
+    ((ref & A_r) == 0).  Returns (score_T, nc_T) [N,B] int32."""
     N, P = st.shape
     B, K = pos.shape
     kvalid, pc, refk = _slot_fields(P, ref, pos)
@@ -156,7 +163,8 @@ def score_entries_T_plain(st, stp, ref, base, nc_base, pos, gval, kmiss):
         matched_r = (rk & s) != 0
         a = torch.where(bm & ~matched, sp, s)
         term1 = kv & ~km & ((gv & a) == 0)
-        sub = kv & torch.where(bm & ~matched_r, sp != rk, s != rk)
+        a_r = torch.where(bm & ~matched_r, sp, s)
+        sub = kv & (((rk & a_r) == 0) if spr else (a_r != rk))
         nca = kv & bm & matched
         ncb = kv & bm & matched_r
         score_t[:, sl] = (base[:, None] + term1.sum(-1, dtype=torch.int32)
@@ -208,13 +216,15 @@ def rows_per_block(P: int) -> int:
     return max(1, min(MAX_ROWS, SMEM_ROWS_BYTES // pitch))
 
 
-def score_entries_T(st, stp, ref, base, nc_base, pos, gval, kmiss):
-    """B1 wrapper: the CUDA kernel for CUDA tensors, the plain twin for CPU
-    tensors.  Same signature and outputs as ``score_entries_T_plain``."""
+def score_entries_T(st, stp, ref, base, nc_base, pos, gval, kmiss,
+                    spr: bool = False):
+    """B1 / B1-spr wrapper: the CUDA kernel for CUDA tensors, the plain twin
+    for CPU tensors.  Same signature and outputs as
+    ``score_entries_T_plain``."""
     _check_state(st, stp, ref, base, nc_base, pos, gval, kmiss)
     if st.device.type == "cpu":
         return score_entries_T_plain(st, stp, ref, base, nc_base, pos, gval,
-                                     kmiss)
+                                     kmiss, spr=spr)
     if st.device.type != "cuda":
         raise ValueError(f"no B1 kernel for device {st.device}")
     lib = load_library()
@@ -229,14 +239,17 @@ def score_entries_T(st, stp, ref, base, nc_base, pos, gval, kmiss):
     stream = torch.cuda.current_stream(st.device).cuda_stream
     err = lib.usher_score_entries_T(
         st.data_ptr(), stp.data_ptr(), base.data_ptr(), nc_base.data_ptr(),
-        slots.data_ptr(), N, P, B, K, rows_per_block(P), score_t.data_ptr(),
-        nc_t.data_ptr(), stream)
+        slots.data_ptr(), N, P, B, K, rows_per_block(P), int(spr),
+        score_t.data_ptr(), nc_t.data_ptr(), stream)
     check(err, "usher_score_entries_T")
     score_entries_T.launches += 1
+    if spr:
+        score_entries_T.launches_spr += 1
     return score_t, nc_t
 
 
 score_entries_T.launches = 0
+score_entries_T.launches_spr = 0
 
 
 def score_sparse_stp_T(st, stp, ref, pos, gval, kmiss):
@@ -253,6 +266,33 @@ def score_sparse_T(st, parent, root_slot, ref, pos, gval, kmiss):
     """score_sparse_stp_T with stp = st[parent] (root row its own)."""
     stp = parent_states(st, parent, root_slot)
     return score_sparse_stp_T(st, stp, ref, pos, gval, kmiss)
+
+
+# --- B1-spr: the CSR BigMAT column path -------------------------------------
+
+def cols_states(m0, anc, parent, root_slot, ref_cols):
+    """Path states of every node at a batch's C columns, from the nodes'
+    own branch-mutation alleles m0 [N, C] uint8 (0 = none) by pointer
+    doubling over the 2^k-ancestor tables anc [n_anc, N] (root -> itself).
+    Returns (st_cols, stp_cols) [N, C] uint8."""
+    val = m0
+    for k in range(anc.shape[0]):
+        val = torch.where(val > 0, val, val[anc[k].long()])
+    st_cols = torch.where(val > 0, val, ref_cols[None, :])
+    return st_cols, parent_states(st_cols, parent, root_slot)
+
+
+def score_cols_T(m0, anc, parent, root_slot, ref_cols, base, nc_base,
+                 pos, gval, kmiss, spr: bool = False):
+    """Column-subset scoring for CSR-backed MATs (core/bigmat.py), the
+    counterpart of placement_pallas.score_cols_T: the path states at the
+    batch's columns (``cols_states``, torch ops) scored by B1, or by B1-spr
+    when spr.  ref_cols [C] uint8; base/nc_base [N] int32 are the
+    full-genome no-entry aggregates; pos [B, K] holds COLUMN indices
+    (>= C marks padding).  Returns (score_T, num_common_T) [N, B] int32."""
+    st_cols, stp_cols = cols_states(m0, anc, parent, root_slot, ref_cols)
+    return score_entries_T(st_cols, stp_cols, ref_cols, base, nc_base,
+                           pos, gval, kmiss, spr=spr)
 
 
 # --- B2: fused validity + tie-broken argmin -------------------------------

@@ -6,7 +6,8 @@ per-sample placement loop (each batch scored on the device against every
 node at once), tree surgery, and the output files (final-tree.nh,
 placement_stats.tsv, mutation-paths.txt, parsimony-scores.tsv, clades.txt,
 MAT .pb).  The host side is the JAX package's; the device side is this
-package's FlatMAT and scoring ops.
+package's FlatMAT and scoring ops, or with --bigmat its CSR BigMAT and
+DFS-interval engine (placement/big_engine.py).
 
 Deterministic semantics: the tie set is every VALID node at the minimum
 score, and the winner maximizes (subtree leaf count, BFS index)
@@ -50,7 +51,8 @@ class UsherOptions:
     max_trees: int = 1
     max_uncertainty: int = 1_000_000
     max_parsimony: int = 1_000_000
-    use_bigmat: bool = False   # CSR BigMAT engine (not ported yet: ROADMAP A6)
+    use_bigmat: bool = False   # CSR BigMAT engine for trees too large for
+    #                            the dense FlatMAT (placement/big_engine.py)
     sort_before_placement_1: bool = False
     sort_before_placement_2: bool = False
     sort_before_placement_3: bool = False
@@ -333,11 +335,12 @@ def run_usher(T: Tree, missing_samples: list[MissingSample], opts: UsherOptions,
             "placement sharded over several devices is not ported yet "
             "(ROADMAP A11, multi-GPU)")
     if opts.use_bigmat:
-        raise NotImplementedError(
-            "the CSR BigMAT engine is not ported yet (ROADMAP A6, "
-            "pandemic path)")
-    with timeit("placement:flat_build"):
-        engine = PlacementEngine(T, vcf, device=device)
+        from .big_engine import BigPlacementEngine
+        _err("Using the CSR BigMAT engine (pandemic-scale path).")
+        engine = BigPlacementEngine(T, vcf, device=device)
+    else:
+        with timeit("placement:flat_build"):
+            engine = PlacementEngine(T, vcf, device=device)
     flat = engine.flat
 
     if missing_samples:
@@ -355,8 +358,16 @@ def run_usher(T: Tree, missing_samples: list[MissingSample], opts: UsherOptions,
             for s in missing_samples:
                 s.mutations.sort(key=lambda m: m.position)
             with timeit("placement:sort_scores"):
-                best_scores, num_placements = engine.best_placements(
-                    [s.mutations for s in missing_samples])
+                if opts.use_bigmat:
+                    # BigPlacementEngine has no fused step: reduce the
+                    # SampleResults, as the JAX driver does for every engine
+                    pres = engine.score_samples(
+                        [s.mutations for s in missing_samples])
+                    best_scores = [r.best_score for r in pres]
+                    num_placements = [r.num_best for r in pres]
+                else:
+                    best_scores, num_placements = engine.best_placements(
+                        [s.mutations for s in missing_samples])
             if opts.sort_before_placement_1:
                 indexes.sort(key=lambda i: (best_scores[i], num_placements[i]))
             else:
