@@ -4,23 +4,38 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from usher_tpu_torch/csrc, then runs
-eight phases and fails (non-zero exit) if any of them fails:
+these phases and fails (non-zero exit) if any of them fails:
 
-  kernel_small     B1, B1-spr and B2 against their plain PyTorch twins on the card,
-                   on random MATs with ambiguous and missing entries,
-                   padding slots, inactive slots and forced ties, and
-                   again on multi-base path states, where B1-spr's
-                   scores must differ from B1's
+  kernel_small     B1, B1-spr, B1-3d and B2 against their plain PyTorch
+                   twins on the card, on random MATs with ambiguous and
+                   missing entries, padding slots, inactive slots and
+                   forced ties, and again on multi-base path states, where
+                   B1-spr's scores must differ from B1's; B1-3d's tiles,
+                   re-laid, must also equal B1's matrices
   kernel_headline  the same on a synthetic 100,000-node x 512-site MAT,
                    1,024 samples of 16 entries, with the median ms of 5 runs
   kernel_genome    the same at genome width: 100,000 nodes x 30,000 sites,
                    1,024 samples of 32 entries
+  mesh_kernel      at that genome shape, a 2 x 2 (data, model) mesh over
+                   the visible cards (shards share a card when there are
+                   fewer): mesh B1 against its plain twin and the
+                   unsharded B1, the sharded B2 step against the unsharded
+                   B2, with the ms of each beside the unsharded call
   fixture_e2e      the usher CLI's build and place steps on the vendored
                    fixtures, byte-matching tests/goldens/smoke_*
   realistic_e2e    the CLI places 1,024 samples (VCF, ~34 entries each,
                    some N) onto a synthetic 100,000-node x 30,000-site MAT
                    saved as a pb, with -s so that the sort pre-pass runs
                    the fused B2 step over the whole set
+  mesh_fixture     the fixture's placement step with --mesh-devices 4, dense
+                   and with --bigmat, byte-matching tests/goldens/smoke_*
+  mesh_realistic   256 samples placed onto the realistic MAT with
+                   --mesh-devices 4 -s; the output files must be
+                   byte-identical to an unsharded run on the same samples;
+                   then, on that run's own sharded FlatMAT and slot arrays
+                   (the first batch of 64 and the pre-pass set of 256),
+                   mesh B1 against its plain twin and the unsharded B1 and
+                   the sharded B2 step against the unsharded B2
   bigmat_fixture   the fixture's two CLI steps with --bigmat (the CSR
                    BigMAT engine), byte-matching tests/goldens/smoke_*
   bigmat_realistic the realistic run again with --bigmat; its output files
@@ -32,18 +47,26 @@ eight phases and fails (non-zero exit) if any of them fails:
                    reduced on the host and the host engine; the column
                    path (B1-spr, both modes) against the interval engine;
                    B1-spr against its plain twin at that shape, on the
-                   tree's path states and on multi-base ones
+                   tree's path states and on multi-base ones; score_batch_T
+                   and place_arrays under a batch mesh of 4 against the
+                   unsharded calls on 256 samples
 
 Kernel against plain comparisons are exact (tolerance 0: the arithmetic is
 integer).  The launch counters are zeroed right before each main path and
 read right after it: the dense path (fixture_e2e and the realistic CLI
-run, kernels B1 and B2) and the BigMAT path (bigmat_fixture,
+run, kernels B1 and B2), the mesh path (mesh_fixture and mesh_realistic,
+B1 and B2 per shard: mesh B1's launches are the B1 kernel's there) and
+the BigMAT path (bigmat_fixture,
 bigmat_realistic and bigmat_pandemic's scoring calls, kernel B1-spr in the
-column path).  Earlier lines report the card, the build, each phase and
-the kernels (one JSON object); the last line is {"ok": true, "device":
-{...}}.  Work files go to build/chip_smoke/.
-The script imports no jax: the port shares only the JAX-free host layers
-of usher_tpu (tree, I/O, host oracle).
+column path).  B1-3d has no caller on any path (its TPU counterpart has
+none either), so its main-path count is 0 and only the comparisons launch
+it.  A kernel's bound is the larger of the bytes it must move (inputs read
+once, outputs written once) over the card's published memory rate and its
+integer operations over the card's int32 rate, both computed here from
+the shapes and slot counts of the run.  Earlier lines report the card, the
+build, each phase and the kernels (one JSON object); the last line is
+{"ok": true, "device": {...}}.  Work files go to build/chip_smoke/.
+The script imports no jax and nothing of the JAX package usher_tpu.
 """
 
 from __future__ import annotations
@@ -68,6 +91,58 @@ GOLDENS = os.path.join(REPO, "tests", "goldens")
 PLACE_FILES = ("placement_stats.tsv", "final-tree.nh", "mutation-paths.txt")
 GOLDEN_FILES = ("smoke_placement_stats.tsv", "smoke_final_tree.nh",
                 "smoke_mutation_paths.txt")
+
+
+# Published peaks of an H100 SXM at its full 700 W limit.  The data sheet
+# gives 3.35 TB/s of HBM3 and 67 TFLOP/s of fp32 outside the tensor cores,
+# which counts a fused multiply-add as two on 128 lanes an SM; an SM has 64
+# int32 lanes and an integer operation counts once, hence a quarter of it.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+# integer operations of the scoring kernels per (node, sample, valid slot)
+# triple (the count in csrc/placement_sparse.cu) and, for B2, per
+# (node, sample) pair of the validity test and tie-break fold
+OPS_PER_TRIPLE = 20
+OPS_PER_PAIR_B2 = 12
+# and of the per-node row reductions per (node, site) cell: three compares,
+# a select and three running sums
+OPS_PER_CELL_REDUCTION = 7
+
+
+def bound(n_bytes, n_ops):
+    """The least time the card could take: {"bound_ms", "bound_by",
+    "bytes_ms", "ops_ms"}."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+
+
+def score_bounds(N, P, pos, n_blocks=None):
+    """Bounds of B1 (also B1-spr, B1-3d and mesh B1, which move the same
+    bytes and do the same work) and of B2 for st/stp [N, P] and the slot
+    array pos [B, K]: st and stp read once, base and nc_base, one slot word
+    per slot, and the outputs written once ([N, B] x 2 for B1; the four
+    [n_blocks, B] partials and three [B] results for B2, which also reads
+    16 bytes of node metadata a row).  Operations count the slots that
+    hold an entry in this run, not K."""
+    B, K = pos.shape
+    valid = int(((pos >= 0) & (pos < P)).sum())
+    read = 2 * N * P + 8 * N + 4 * K * B
+    triples = N * valid * OPS_PER_TRIPLE
+    out = {"B1": bound(read + 8 * N * B, triples + 2 * N * B)}
+    if n_blocks is not None:
+        out["B2"] = bound(read + 16 * N + 16 * n_blocks * B + 12 * B,
+                          triples + N * B * OPS_PER_PAIR_B2)
+    return out
+
+
+def reductions_bound(N, P):
+    """Bound of the per-node row reductions (PyTorch code, no kernel of the
+    port) that a scoring wrapper computes before it launches: st and stp
+    read once, three [N] int32 vectors written."""
+    return bound(2 * N * P + 12 * N, N * P * OPS_PER_CELL_REDUCTION)
 
 
 def log(*a):
@@ -107,10 +182,12 @@ class Kernels:
     """The kernels of the port: comparison errors, times and the launch
     counts of a main path."""
 
-    def __init__(self, ps):
+    def __init__(self, ps, pmesh):
         self.ps = ps
-        self.err = {"B1": 0, "B2": 0, "B1-spr": 0}
+        self.pmesh = pmesh
+        self.err = {"B1": 0, "B2": 0, "B1-spr": 0, "B1-3d": 0, "mesh B1": 0}
         self.ms = {}
+        self.bounds = {}
 
     def compare_b1(self, b1, ambiguous=False):
         """B1 and B1-spr against their plain twins on one input.  With
@@ -124,10 +201,35 @@ class Kernels:
             self.err[name] = max(self.err[name], max_abs_err(
                 got, ps.score_entries_T_plain(*b1, spr=spr)))
             scores[spr] = got[0]
+            self.compare_3d(b1, spr, got)
+            del got
         torch.cuda.synchronize()
         if ambiguous and torch.equal(scores[False], scores[True]):
             raise AssertionError("B1-spr scores equal B1's on ambiguous "
                                  "path states")
+
+    @staticmethod
+    def tile_width(b1):
+        """Samples per B1-3d tile for the slot array of b1: 1,024 slots a
+        tile, as the TPU kernel cut its tiles, and at least one sample."""
+        return max(1, 1024 // b1[5].shape[1])
+
+    def compare_3d(self, b1, spr, flat_out):
+        """B1-3d against its plain twin and against B1's [N, B] matrices
+        re-laid, on the real rows and samples of the tiles."""
+        ps = self.ps
+        tb = self.tile_width(b1)
+        got = ps.score_entries_3d(*b1, tb, spr=spr)
+        want = ps.score_entries_3d_plain(*b1, tb, spr=spr)
+        if got[2:] != want[2:]:
+            raise AssertionError(f"B1-3d shapes {got[2:]} vs {want[2:]}")
+        N, B = got[2], got[3]
+        relaid = [ps.tiles_to_T(t, N, B) for t in got[:2]]
+        del got
+        err = max_abs_err(relaid, [ps.tiles_to_T(t, N, B) for t in want[:2]])
+        del want
+        err = max(err, max_abs_err(relaid, flat_out))
+        self.err["B1-3d"] = max(self.err["B1-3d"], err)
 
     def compare(self, st, stp, ref, node, pos, gval, kmiss, ambiguous=False):
         """B1, B1-spr and B2 against their plain twins on one input; node
@@ -144,23 +246,34 @@ class Kernels:
 
     def time(self, phase, b1, b2):
         ps = self.ps
+        tb = self.tile_width(b1)
         t = {"B1": (median_ms(lambda: ps.score_entries_T(*b1)),
                     median_ms(lambda: ps.score_entries_T_plain(*b1))),
+             "B1-3d": (median_ms(lambda: ps.score_entries_3d(*b1, tb)),
+                       median_ms(lambda: ps.score_entries_3d_plain(*b1,
+                                                                   tb))),
              "B2": (median_ms(lambda: ps.placement_reduce(*b2)),
                     median_ms(lambda: ps.placement_reduce_plain(*b2)))}
         self.ms[phase] = t
+        N, P = b1[0].shape
+        self.bounds[phase] = score_bounds(
+            N, P, b1[5].cpu().numpy(), -(-N // ps.rows_per_block(P)))
         return t
 
     def reset_counts(self):
         self.ps.score_entries_T.launches = 0
         self.ps.score_entries_T.launches_spr = 0
         self.ps.placement_reduce.launches = 0
+        self.ps.score_entries_3d.launches = 0
 
     def counts(self):
-        """Launches per kernel; B1 counts its spr=False launches only."""
+        """Launches per kernel; B1 counts its spr=False launches only.
+        Mesh B1 launches the B1 kernel once per shard, so over a sharded
+        run its count is B1's."""
         f = self.ps.score_entries_T
         return {"B1": f.launches - f.launches_spr, "B1-spr": f.launches_spr,
-                "B2": self.ps.placement_reduce.launches}
+                "B2": self.ps.placement_reduce.launches,
+                "B1-3d": self.ps.score_entries_3d.launches}
 
 
 def ambiguous_states(st, parent, root_slot, seed):
@@ -182,8 +295,8 @@ def random_mat(rng, n_leaves, n_positions, mut_rate=0.35):
     """Random multifurcating topology with well-formed branch mutations
     (par_nuc is the parent's path state, mut != par), back mutations
     included, sometimes a root mutation."""
-    from usher_tpu.core.tree import Mutation
-    from usher_tpu.io.newick import parse_newick_string
+    from usher_tpu_torch.core.tree import Mutation
+    from usher_tpu_torch.io.newick import parse_newick_string
     bases = NIBBLES.tolist()
     parts = [f"L{i}" for i in range(n_leaves)]
     while len(parts) > 1:
@@ -219,7 +332,7 @@ def random_mat(rng, n_leaves, n_positions, mut_rate=0.35):
 def random_sample(rng, ref, n_entries):
     """Entries at random sites: 15% missing (N), 20% ambiguous masks, the
     rest a non-reference base."""
-    from usher_tpu.core.tree import Mutation
+    from usher_tpu_torch.core.tree import Mutation
     bases = NIBBLES.tolist()
     sites = sorted(rng.choice(list(ref), size=min(n_entries, len(ref)),
                               replace=False).tolist())
@@ -332,10 +445,13 @@ def phase_kernel_synth(kern, name, mat, n_samples, n_entries, seed, device):
     t = kern.time(name, b1, b2)
     del b1, b2, st, stp
     torch.cuda.empty_cache()
+    bounds = kern.bounds[name]
     return {"N": N, "P": P, "B": n_samples, "K": n_entries,
             "max_abs_err": dict(kern.err),
             "B1_ms": t["B1"][0], "B1_plain_ms": t["B1"][1],
-            "B2_ms": t["B2"][0], "B2_plain_ms": t["B2"][1]}
+            "B1_3d_ms": t["B1-3d"][0], "B1_3d_plain_ms": t["B1-3d"][1],
+            "B2_ms": t["B2"][0], "B2_plain_ms": t["B2"][1],
+            "B1_bound": bounds["B1"], "B2_bound": bounds["B2"]}
 
 
 # --- end to end through the CLI --------------------------------------------
@@ -398,7 +514,7 @@ def phase_fixture_e2e(kern):
 
 def synth_tree(mat, positions):
     """The synthetic MAT as a Tree (leaves named leaf_<i>)."""
-    from usher_tpu.core.tree import Mutation, Tree
+    from usher_tpu_torch.core.tree import Mutation, Tree
     st, parent, ref = mat["st"], mat["parent"], mat["ref"]
     N = len(parent)
     T = Tree()
@@ -461,7 +577,7 @@ def stage_seconds(trace_path):
 def realistic_setup(mat, n_samples, seed):
     """Inputs of the realistic run: the synthetic MAT as a Tree and as a
     pb, and a VCF of n_samples new samples."""
-    from usher_tpu.io.pbio import save_mat_pb
+    from usher_tpu_torch.io.pbio import save_mat_pb
     rng = np.random.default_rng(seed)
     out = os.path.join(WORK, "realistic")
     os.makedirs(out, exist_ok=True)
@@ -479,9 +595,10 @@ def realistic_setup(mat, n_samples, seed):
                         "tree_nodes": T.num_nodes()}
 
 
-def run_realistic_cli(pb, vcf, batch_size, *flags):
-    from usher_tpu.utils.instrument import Instrumentor
-    tag = "".join(f.strip("-") for f in flags)
+def run_realistic_cli(pb, vcf, batch_size, *flags, tag=None):
+    from usher_tpu_torch.utils.instrument import Instrumentor
+    if tag is None:
+        tag = "".join(f.strip("-") for f in flags)
     out = os.path.join(WORK, "realistic", "out" + tag)
     trace = os.path.join(WORK, "realistic", f"trace{tag}.json")
     inst = Instrumentor.get()
@@ -497,8 +614,8 @@ def run_realistic_cli(pb, vcf, batch_size, *flags):
 
 def check_realistic(kern, T, vcf, out_dir, n_samples, counts, device,
                     batch_size):
-    from usher_tpu.io.newick import parse_newick_string
-    from usher_tpu.io.vcf import read_vcf
+    from usher_tpu_torch.io.newick import parse_newick_string
+    from usher_tpu_torch.io.vcf import read_vcf
     from usher_tpu_torch.placement.driver import PlacementEngine
     ps = kern.ps
     with open(os.path.join(out_dir, "placement_stats.tsv")) as f:
@@ -555,13 +672,238 @@ def check_realistic(kern, T, vcf, out_dir, n_samples, counts, device,
                            if name == "B1" else
                            (ps.placement_reduce, ps.placement_reduce_plain,
                             b2))
-        shapes[name] = {"N": int(st.shape[0]), "P": int(st.shape[1]),
+        N, P = (int(x) for x in st.shape)
+        shapes[name] = {"N": N, "P": P,
                         "B": len(samples), "K": int(pos.shape[1]),
                         "ms": median_ms(lambda: fn(*args)),
-                        "plain_ms": median_ms(lambda: plain(*args))}
+                        "plain_ms": median_ms(lambda: plain(*args)),
+                        "bound": score_bounds(
+                            N, P, pos.cpu().numpy(),
+                            -(-N // ps.rows_per_block(P)))[name]}
     return {"stats_rows": len(rows), "leaves_added": n_leaves_out - n_leaves_in,
             "first_batch": f"{len(got)} SampleResults identical",
             "main_shapes": shapes}
+
+
+# --- the mesh path -------------------------------------------------------------
+
+MESH_SHARDS = 4        # --mesh-devices of the CLI phases: a 2 x 2 mesh
+
+
+def mesh_against_unsharded(kern, mesh, sh, node_sh, whole, node,
+                           plain_runs=3):
+    """mesh B1 against its plain twin and the unsharded B1, and the sharded
+    B2 step against the unsharded B2 kernel, all exact, then the median ms
+    of each.  sh is (st, stp, ref, pos, gval, kmiss) sharded over the mesh
+    and node_sh the five node metadata arrays; whole and node are the same
+    on the lead device."""
+    ps, pmesh = kern.ps, kern.pmesh
+    st, stp, ref, pos, gval, kmiss = whole
+
+    def gathered(out):
+        """Sharded (score, nc, nnm) as whole tensors on the lead device."""
+        score_t, nc_t, nnm = out
+        parts = [torch.cat([torch.cat([b.to(mesh.lead) for b in per_d], 0)
+                            for per_d in blocks], 1)
+                 for blocks in (score_t, nc_t)]
+        return parts + [torch.cat([t.to(mesh.lead) for t in nnm[0]])]
+
+    mesh_fn = pmesh.sharded_sparse_score_fn(mesh)
+    before = kern.counts()["B1"]
+    got = gathered(mesh_fn(*sh))
+    per_call = kern.counts()["B1"] - before
+    if per_call != mesh.size:
+        raise AssertionError(f"mesh B1 made {per_call} launches for "
+                             f"{mesh.size} shards")
+    err = max_abs_err(got, gathered(
+        pmesh.sharded_sparse_score_plain(mesh, *sh)))
+    err = max(err, max_abs_err(got, ps.score_sparse_stp_T(*whole)))
+    kern.err["mesh B1"] = max(kern.err["mesh B1"], err)
+    del got
+    base, nc_base, nnm = ps.row_reductions(st, stp, ref)
+    b2 = (st, stp, ref, base, nc_base, nnm, *node, pos, gval, kmiss)
+    best, row, num_best = ps.placement_reduce(*b2)
+    got2 = pmesh.sharded_placement_reduce(mesh, sh[0], sh[1], sh[2],
+                                          *node_sh, *sh[3:])
+    err2 = max_abs_err(got2, (best, node[4][row.long()], num_best))
+    kern.err["B2"] = max(kern.err["B2"], err2)
+    torch.cuda.synchronize()
+    t = {
+        "mesh_b1_ms": median_ms(lambda: mesh_fn(*sh)),
+        "mesh_b1_plain_ms": median_ms(
+            lambda: pmesh.sharded_sparse_score_plain(mesh, *sh),
+            runs=plain_runs),
+        "unsharded_score_sparse_ms": median_ms(
+            lambda: ps.score_sparse_stp_T(*whole)),
+        "mesh_b2_ms": median_ms(lambda: pmesh.sharded_placement_reduce(
+            mesh, sh[0], sh[1], sh[2], *node_sh, *sh[3:])),
+        "unsharded_b2_ms": median_ms(lambda: ps.placement_reduce(*b2)),
+    }
+    return dict(t, launches_per_call=per_call,
+                max_abs_err={"mesh B1": err, "B2": err2}), b2
+
+
+def phase_mesh_kernel(kern, mat, n_samples, n_entries, seed, device):
+    """mesh B1 and the sharded B2 step at the genome shape on a 2 x 2
+    (data, model) mesh over the visible cards."""
+    ps, pmesh = kern.ps, kern.pmesh
+    rng = np.random.default_rng(seed)
+    N, P = mat["st"].shape
+    mesh = pmesh.make_mesh(MESH_SHARDS, device=device)
+    pos_h, gval_h, kmiss_h = synth_slots(rng, mat["ref"], n_samples,
+                                         n_entries)
+    stp_h = mat["st"][mat["parent"]]
+    node_h = (np.ones(N, dtype=bool), mat["is_leaf"], np.arange(N) == 0,
+              mat["num_leaves"], np.arange(N, dtype=np.int32))
+    sh = pmesh.shard_sparse_inputs(mesh, mat["st"], stp_h, mat["ref"],
+                                   pos_h, gval_h, kmiss_h)
+    node_sh = [pmesh.put_nodes(mesh, a) for a in node_h]
+    # the unsharded inputs, on the lead device
+    whole = tuple(torch.from_numpy(x).to(mesh.lead) for x in (
+        mat["st"], stp_h, mat["ref"], pos_h, gval_h, kmiss_h))
+    del stp_h
+    node = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(mesh.lead)
+                 for a in node_h)
+    t, b2 = mesh_against_unsharded(kern, mesh, sh, node_sh, whole, node)
+
+    # one shard's kernel launch alone: N / model rows x B / data samples
+    s00 = [x[0][0] for x in sh]
+    base0, nc_base0, _ = ps.row_reductions(s00[0], s00[1], s00[2])
+    shard_b1 = (s00[0], s00[1], s00[2], base0, nc_base0, *s00[3:])
+    b1 = (*whole[:3], b2[3], b2[4], *whole[3:])
+    t.update({
+        "unsharded_b1_kernel_ms": median_ms(
+            lambda: ps.score_entries_T(*b1)),
+        "one_shard_b1_kernel_ms": median_ms(
+            lambda: ps.score_entries_T(*shard_b1)),
+        "row_reductions_ms": median_ms(
+            lambda: ps.row_reductions(*whole[:3])),
+    })
+    kern.ms["mesh_kernel"] = t
+    kern.bounds["mesh_kernel"] = dict(
+        score_bounds(N, P, pos_h), reductions=reductions_bound(N, P))
+    shard_shape = [int(x) for x in (*s00[0].shape, s00[3].shape[0])]
+    devices = sorted({str(d) for d in mesh.devices.reshape(-1).tolist()})
+    del whole, sh, b1, b2, shard_b1, s00
+    torch.cuda.empty_cache()
+    return dict(t, N=N, P=P, B=n_samples, K=n_entries,
+                mesh=mesh.shape, devices=devices, shard_NPB=shard_shape,
+                mesh_b1_bound=kern.bounds["mesh_kernel"]["B1"],
+                reductions_bound=kern.bounds["mesh_kernel"]["reductions"])
+
+
+def phase_mesh_fixture(kern, built_pb):
+    """The fixture's placement step sharded over MESH_SHARDS, dense and
+    with --bigmat, from the pb that fixture_e2e built."""
+    fx = os.path.join(REPO, "tests", "fixtures")
+    out = os.path.join(WORK, "fixture_mesh")
+    before = kern.counts()
+    for tag, flags in (("dense", []), ("bigmat", ["--bigmat"])):
+        run_cli(["-i", built_pb, "-v", os.path.join(fx, "new_samples.vcf"),
+                 "-d", os.path.join(out, tag), "--mesh-devices",
+                 str(MESH_SHARDS), *flags])
+        same_files(os.path.join(out, tag), GOLDENS,
+                   zip(PLACE_FILES, GOLDEN_FILES))
+    after = kern.counts()
+    if after["B1"] - before["B1"] < MESH_SHARDS:
+        raise AssertionError("the sharded fixture run never launched mesh B1")
+    return {"goldens": "byte-identical (dense and --bigmat)",
+            "mesh_devices": MESH_SHARDS,
+            "launches": {k: after[k] - before[k] for k in after}}
+
+
+def mesh_reference(mat, pb, n_samples, batch_size, seed):
+    """A VCF of n_samples new samples for the realistic MAT and the
+    unsharded CLI run on it, which the sharded run must reproduce."""
+    rng = np.random.default_rng(seed)
+    positions = np.arange(1, mat["st"].shape[1] + 1, dtype=np.int64)
+    vcf = os.path.join(WORK, "realistic", f"samples{n_samples}.vcf")
+    n_sites, mean_entries = write_samples_vcf(vcf, rng, mat, positions,
+                                              n_samples)
+    wall, stages, out = run_realistic_cli(
+        pb, vcf, batch_size, "--mesh-devices", "0", tag="mesh_off")
+    return {"vcf": vcf, "out": out, "wall": wall, "stages": stages,
+            "n_sites": n_sites, "mean_entries": mean_entries}
+
+
+def check_mesh_realistic(kern, pb, vcf, batch_size, device):
+    """The mesh kernels at the sharded main path's own shapes, on the
+    engine's sharded FlatMAT of the realistic tree: mesh B1 on the first
+    batch and the sharded B2 step on the whole sample set (the -s
+    pre-pass), each against its plain twin and the unsharded kernel."""
+    from usher_tpu_torch.io.pbio import load_mat_pb
+    from usher_tpu_torch.io.vcf import read_vcf
+    from usher_tpu_torch.placement.driver import PlacementEngine
+    ps, pmesh = kern.ps, kern.pmesh
+    T = load_mat_pb(pb)
+    missing, vcf_data = read_vcf(T, vcf, create_new_mat=False)
+    mesh = pmesh.make_mesh(MESH_SHARDS, device=device)
+    eng = PlacementEngine(T, vcf_data, mesh=mesh)
+    flat = eng.flat
+    st_sh, stp_sh = flat.sync_mesh()
+    meta = flat.order_arrays()
+    node_h = [meta[k] for k in ("active", "is_leaf", "is_root_mask",
+                                "num_leaves", "bfs_rank")]
+    node_sh = [pmesh.put_nodes(mesh, a) for a in node_h]
+    node = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(mesh.lead)
+                 for a in node_h)
+    st, stp = (torch.cat([t.to(mesh.lead) for t in x[0]])
+               for x in (st_sh, stp_sh))
+    ref = flat.ref_mesh[0][0].to(mesh.lead)
+    N, P = (int(x) for x in st.shape)
+    rpb = ps.rows_per_block(P)
+    n_blocks = sum(-(-int(t.shape[0]) // rpb) for t in st_sh[0])
+    shapes = {}
+    for name, samples in (("batch", missing[:batch_size]),
+                          ("pre_pass", missing)):
+        slots = eng._pad_sparse([s.mutations for s in samples])
+        sh = (st_sh, stp_sh, flat.ref_mesh,
+              *(pmesh.put_batch(mesh, x) for x in slots))
+        whole = (st, stp, ref,
+                 *(torch.from_numpy(x).to(mesh.lead) for x in slots))
+        t, _ = mesh_against_unsharded(kern, mesh, sh, node_sh, whole, node)
+        bounds = score_bounds(N, P, slots[0], n_blocks)
+        shapes[name] = dict(
+            t, N=N, P=P, B=len(samples), K=int(slots[0].shape[1]),
+            shard_NPB=[int(x) for x in (*st_sh[0][0].shape,
+                                        sh[3][0][0].shape[0])],
+            mesh_b1_bound=bounds["B1"], b2_bound=bounds["B2"])
+        del sh, whole
+    return shapes
+
+
+def phase_mesh_realistic(kern, pb, reference, n_samples, batch_size, device):
+    """n_samples new samples onto the realistic MAT with --mesh-devices 4,
+    against the unsharded run on the same VCF (``mesh_reference``); then
+    the mesh kernels against their plain twins at that run's shapes."""
+    vcf, out_1 = reference["vcf"], reference["out"]
+    wall_1, stages_1 = reference["wall"], reference["stages"]
+    n_sites, mean_entries = reference["n_sites"], reference["mean_entries"]
+    before = kern.counts()
+    wall_m, stages_m, out_m = run_realistic_cli(
+        pb, vcf, batch_size, "--mesh-devices", str(MESH_SHARDS),
+        tag="mesh_on")
+    after = kern.counts()
+    launches = {k: after[k] - before[k] for k in after}
+    same_files(out_m, out_1, zip(PLACE_FILES, PLACE_FILES))
+    with open(os.path.join(out_m, "placement_stats.tsv")) as f:
+        rows = [l for l in f.read().split("\n") if l]
+    if len(rows) != n_samples:
+        raise AssertionError(f"placement_stats.tsv has {len(rows)} rows")
+    need = -(-n_samples // batch_size) * MESH_SHARDS
+    if launches["B1"] < need or launches["B2"] < MESH_SHARDS:
+        raise AssertionError(f"mesh launches {launches}: expected B1 "
+                             f">= {need} and B2 >= {MESH_SHARDS}")
+    shapes = check_mesh_realistic(kern, pb, vcf, batch_size, device)
+    torch.cuda.empty_cache()
+    return {"vs_unsharded": "byte-identical " + ", ".join(PLACE_FILES),
+            "samples": n_samples, "vcf_sites": n_sites,
+            "mean_entries": mean_entries, "mesh_devices": MESH_SHARDS,
+            "launches": launches, "main_shapes": shapes,
+            "cli_seconds": wall_m, "unsharded_cli_seconds": wall_1,
+            "stage_seconds": {k: round(v, 3) for k, v in stages_m.items()},
+            "unsharded_stage_seconds": {k: round(v, 3)
+                                        for k, v in stages_1.items()}}
 
 
 # --- the BigMAT path ---------------------------------------------------------
@@ -781,6 +1123,22 @@ def phase_bigmat_pandemic(kern, device, n_nodes=1_000_000, n_sites=30_000):
     spr_cols_s = time.perf_counter() - t0
     same_arrays("score_spr_T_cols vs score_spr_T", spr_cols, spr_iv)
     launches = kern.counts()          # end of the BigMAT path's window
+    # the batch mesh: the sample axis split over 4 shards, against the
+    # unsharded calls above on the same 256 samples
+    from usher_tpu_torch.parallel.shard import batch_mesh
+    big.mesh = batch_mesh(MESH_SHARDS, device=device)
+    t0 = time.perf_counter()
+    sm_T, ncm_T, _ = big.score_batch_T(pos[:B_x8], gval[:B_x8], kmiss[:B_x8])
+    mesh_x8_s = time.perf_counter() - t0
+    same_arrays("score_batch_T under a batch mesh", (sm_T, ncm_T),
+                (s_T, nc_T))
+    del sm_T, ncm_T
+    t0 = time.perf_counter()
+    res_m = big.place_arrays(pos[:B_x8], gval[:B_x8], kmiss[:B_x8])
+    mesh_place_s = time.perf_counter() - t0
+    same_arrays("place_arrays under a batch mesh", res_m,
+                [r[:B_x8] for r in res])
+    big.mesh = None
     if launches["B1-spr"] < 1 or launches["B1"] < 1:
         raise AssertionError(f"column path launches {launches}: expected "
                              "B1 (spr=False) and B1-spr >= 1")
@@ -804,6 +1162,8 @@ def phase_bigmat_pandemic(kern, device, n_nodes=1_000_000, n_sites=30_000):
                 median_ms(lambda: ps.score_entries_T_plain(*b1, spr=True)))}
             shape = {"N": int(st_c.shape[0]), "C": int(st_c.shape[1]),
                      "B": B_cols, "K": K_slots}
+            kern.bounds["bigmat_pandemic"] = score_bounds(
+                shape["N"], shape["C"], args[7].cpu().numpy())["B1"]
             # both modes at this shape on multi-base path states, where
             # they must part (the tree's own states are single bases)
             del stp_c
@@ -825,10 +1185,14 @@ def phase_bigmat_pandemic(kern, device, n_nodes=1_000_000, n_sites=30_000):
             "cols_score_batch_T_cols_64_s": cols_s,
             "x8_score_spr_T_64_s": spr_x8_s,
             "cols_score_spr_T_cols_64_s": spr_cols_s,
+            "mesh4_score_batch_T_256_s": mesh_x8_s,
+            "mesh4_place_arrays_256_s": mesh_place_s,
             "checks": "X5 == X8 + host tie-break (256), == place_one_host "
-                      "(4); cols == interval (64, both modes)",
+                      "(4); cols == interval (64, both modes); batch mesh "
+                      "of 4 == unsharded (256, scores and placements)",
             "launches": launches, "b1_spr_shape": shape,
             "b1_spr_ms": ms, "b1_spr_plain_ms": plain_ms,
+            "b1_spr_bound": kern.bounds["bigmat_pandemic"],
             "max_abs_err": {"B1-spr": kern.err["B1-spr"],
                             "B1": kern.err["B1"]}}
 
@@ -840,6 +1204,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from usher_tpu_torch.ops import _build
     from usher_tpu_torch.ops import placement_sparse as ps
+    from usher_tpu_torch.parallel import mesh as pmesh
     from usher_tpu_torch.utils.device import apply_platform_env
 
     os.environ["USHER_TPU_PLATFORM"] = "cuda"
@@ -860,7 +1225,7 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
-    kern = Kernels(ps)
+    kern = Kernels(ps, pmesh)
     results = {}
 
     def phase(name, fn, *a):
@@ -881,6 +1246,7 @@ def main() -> int:
     genome = synth_mat(np.random.default_rng(3), 100_000, 30_000)
     phase("kernel_genome", phase_kernel_synth, kern, "kernel_genome",
           genome, 1024, 32, 4, device)
+    phase("mesh_kernel", phase_mesh_kernel, kern, genome, 1024, 32, 4, device)
 
     # set-up of the realistic run (tree, pb, VCF) before the main path
     T, pb, vcf, setup = realistic_setup(genome, 1024, 5)
@@ -899,7 +1265,21 @@ def main() -> int:
                     stage_seconds={k: round(v, 3) for k, v in stages.items()})
 
     phase("realistic_e2e", realistic)
-    del T, genome
+    del T
+
+    # --- the mesh path: the counters cover the sharded CLI runs; the -------
+    # --- unsharded run they are held against comes before the window, and --
+    # --- mesh_realistic reads them before it compares kernels --------------
+    reference = mesh_reference(genome, pb, 256, 64, 6)
+    del genome
+    kern.reset_counts()
+    mesh_fixture = phase("mesh_fixture", phase_mesh_fixture, kern,
+                         os.path.join(WORK, "fixture", "out.pb"))
+    mesh_real = phase("mesh_realistic", phase_mesh_realistic, kern, pb,
+                      reference, 256, 64, device)
+    mesh_counts = {k: mesh_fixture["launches"][k] + mesh_real["launches"][k]
+                   for k in mesh_real["launches"]}
+    # ----------------------------------------------------------------------
 
     # --- the BigMAT path: the counters cover these CLI runs and the ------
     # --- pandemic phase's scoring calls (read inside that phase) ---------
@@ -910,23 +1290,56 @@ def main() -> int:
     big_counts = pandemic["launches"]
     # ----------------------------------------------------------------------
 
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("jax was imported")
+    for banned in ("jax", "jaxlib", "usher_tpu"):
+        if any(m == banned or m.startswith(banned + ".")
+               for m in sys.modules):
+            raise AssertionError(f"{banned} was imported")
+    if mesh_counts["B1"] < 1 or mesh_counts["B2"] < 1:
+        raise AssertionError(f"mesh path launches {mesh_counts}")
     genome_ms = kern.ms["kernel_genome"]
+    genome_bound = kern.bounds["kernel_genome"]
+    mesh_ms = kern.ms["mesh_kernel"]
     src = "usher_tpu_torch/csrc/placement_sparse.cu"
+
+    def entry(name, replaces, launches, err, ms, plain_ms, bnd, **more):
+        # library_ms is null throughout: no single PyTorch call computes
+        # the sparse placement score or its tie-broken argmin
+        return dict(name=name, route="cuda", source=src, replaces=replaces,
+                    launches=launches, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
+                    bound_by=bnd["bound_by"], library_ms=None,
+                    bytes_ms=bnd["bytes_ms"], ops_ms=bnd["ops_ms"], **more)
+
     kernels = [
-        {"name": "B1 score_entries_T", "route": "cuda", "source": src,
-         "replaces": "usher_tpu/ops/placement_pallas.py:176",
-         "launches": counts["B1"], "max_abs_err": kern.err["B1"],
-         "ms": genome_ms["B1"][0], "plain_ms": genome_ms["B1"][1]},
-        {"name": "B2 placement_reduce", "route": "cuda", "source": src,
-         "replaces": "usher_tpu/ops/placement_pallas.py:119",
-         "launches": counts["B2"], "max_abs_err": kern.err["B2"],
-         "ms": genome_ms["B2"][0], "plain_ms": genome_ms["B2"][1]},
-        {"name": "B1-spr score_cols_T", "route": "cuda", "source": src,
-         "replaces": "usher_tpu/ops/placement_pallas.py:416",
-         "launches": big_counts["B1-spr"], "max_abs_err": kern.err["B1-spr"],
-         "ms": pandemic["b1_spr_ms"], "plain_ms": pandemic["b1_spr_plain_ms"]},
+        entry("B1 score_entries_T",
+              "usher_tpu/ops/placement_pallas.py:176", counts["B1"],
+              kern.err["B1"], *genome_ms["B1"], genome_bound["B1"],
+              shape="kernel_genome"),
+        entry("B2 placement_reduce",
+              "usher_tpu/ops/placement_pallas.py:119", counts["B2"],
+              kern.err["B2"], *genome_ms["B2"], genome_bound["B2"],
+              shape="kernel_genome", mesh_path_launches=mesh_counts["B2"]),
+        entry("B1-spr score_cols_T",
+              "usher_tpu/ops/placement_pallas.py:416", big_counts["B1-spr"],
+              kern.err["B1-spr"], pandemic["b1_spr_ms"],
+              pandemic["b1_spr_plain_ms"], pandemic["b1_spr_bound"],
+              shape="bigmat_pandemic column path"),
+        entry("mesh B1 sharded_sparse_score_fn",
+              "usher_tpu/parallel/mesh.py:112", mesh_counts["B1"],
+              kern.err["mesh B1"], mesh_ms["mesh_b1_ms"],
+              mesh_ms["mesh_b1_plain_ms"], kern.bounds["mesh_kernel"]["B1"],
+              shape="mesh_kernel (2 x 2 shards; ms includes the row "
+                    "reductions, the bound is the kernel's alone)",
+              reductions_bound_ms=kern.bounds["mesh_kernel"]["reductions"][
+                  "bound_ms"],
+              main_shapes=mesh_real["main_shapes"],
+              wrapper="usher_tpu_torch/parallel/mesh.py"),
+        entry("B1-3d score_entries_3d",
+              "usher_tpu/ops/placement_pallas.py:300",
+              counts["B1-3d"] + mesh_counts["B1-3d"] + big_counts["B1-3d"],
+              kern.err["B1-3d"], *genome_ms["B1-3d"], genome_bound["B1"],
+              shape="kernel_genome",
+              note="no caller on any path, as in the JAX package"),
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -16,12 +16,17 @@ from usher_tpu.core.bigmat import BigMAT as JBigMAT
 from usher_tpu.io.newick import write_newick
 from usher_tpu.placement.big_engine import BigPlacementEngine as JEngine
 from usher_tpu.placement.mapper import score_placement
+from usher_tpu_torch.io.newick import write_newick as port_write_newick
+from usher_tpu_torch.ops import interval as iv
+from usher_tpu_torch.placement.mapper import score_placement as \
+    port_score_placement
 from usher_tpu_torch.core import bigmat as bm
 from usher_tpu_torch.core.bigmat import BigMAT
 from usher_tpu_torch.placement.big_engine import BigPlacementEngine
 
 from test_bigmat_flush import NIBBLES, random_big
 from test_placement import random_mat, random_sample
+from test_torch_hostlayers import port_samples, port_tree
 
 
 def _pair(seed, n_leaves=40, n_positions=20, n_samples=6):
@@ -31,7 +36,7 @@ def _pair(seed, n_leaves=40, n_positions=20, n_samples=6):
     refarr = np.array([ref[p] for p in positions.tolist()], dtype=np.uint8)
     samples = [random_sample(rng, ref) for _ in range(n_samples)]
     return (JBigMAT.from_tree(T, positions, refarr),
-            BigMAT.from_tree(T, positions, refarr, device="cpu"),
+            BigMAT.from_tree(port_tree(T), positions, refarr, device="cpu"),
             samples, rng)
 
 
@@ -211,8 +216,11 @@ def test_big_engine_stream_matches_jax(seed):
     T, ref = random_mat(rng, n_leaves=40, n_positions=25)
     samples = [(f"S{i}", random_sample(rng, ref)) for i in range(12)]
     T2 = T.copy()
+    T = port_tree(T)           # the port's engine works on the port's tree
+    psamples = port_samples([s for _, s in samples])
     extra = [m for _, s in samples for m in s]
-    eng = BigPlacementEngine(T, extra_mutations=extra, device="cpu")
+    eng = BigPlacementEngine(T, extra_mutations=[m for s in psamples
+                                                 for m in s], device="cpu")
     jeng = JEngine(T2, extra_mutations=extra)
 
     builds = {"n": 0}
@@ -224,9 +232,9 @@ def test_big_engine_stream_matches_jax(seed):
 
     BigMAT.from_tree = classmethod(counting)
     try:
-        for name, muts in samples:
+        for (name, muts), pmuts in zip(samples, psamples):
             muts.sort(key=lambda m: m.position)
-            r = eng.score_samples([muts], want_matrix=True)[0]
+            r = eng.score_samples([pmuts], want_matrix=True)[0]
             rj = jeng.score_samples([muts], want_matrix=True)[0]
             assert (r.best_score, r.num_best, r.best_has_unique,
                     r.tied_has_unique) == \
@@ -237,14 +245,15 @@ def test_big_engine_stream_matches_jax(seed):
                 [n.identifier for n in rj.tied_nodes]
             np.testing.assert_array_equal(r.scores_bfs, rj.scores_bfs)
             np.testing.assert_array_equal(r.valid_bfs, rj.valid_bfs)
-            eng.apply_placement(name, r, score_placement(r.best_node,
-                                                         muts).excess)
+            eng.apply_placement(name, r, port_score_placement(
+                r.best_node, pmuts).excess)
             jeng.apply_placement(name, rj, score_placement(rj.best_node,
                                                            muts).excess)
     finally:
         BigMAT.from_tree = classmethod(orig)
     assert builds["n"] == 1
-    assert write_newick(T, print_internal=True, print_branch_len=True) == \
+    assert port_write_newick(T, print_internal=True,
+                             print_branch_len=True) == \
         write_newick(T2, print_internal=True, print_branch_len=True)
 
     big = eng._big
@@ -260,9 +269,62 @@ def test_big_engine_stream_matches_jax(seed):
                                       err_msg=name)
 
 
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_bigmat_mesh_identical(n_shards):
+    """score_batch_T, score_spr_T and place_batch with the sample axis
+    split over a batch mesh equal the unsharded BigMAT and the JAX BigMAT
+    under its 8-device mesh, on 19 samples (uneven shards)."""
+    import jax
+    from jax.sharding import Mesh as JMesh
+    from usher_tpu_torch.parallel.shard import batch_mesh
+    rng = np.random.default_rng(5)
+    T, ref = random_mat(rng, n_leaves=120, n_positions=30)
+    positions = np.array(sorted(ref), dtype=np.int64)
+    refarr = np.array([ref[p] for p in positions.tolist()], dtype=np.uint8)
+    samples = [random_sample(rng, ref) for _ in range(19)]
+    jb = JBigMAT.from_tree(T, positions, refarr)
+    jb.mesh = JMesh(np.array(jax.devices()[:8]), ("batch",))
+    big1 = BigMAT.from_tree(port_tree(T), positions, refarr, device="cpu")
+    bigM = BigMAT.from_tree(port_tree(T), positions, refarr, device="cpu")
+    bigM.mesh = batch_mesh(n_shards, device="cpu")
+    psamples = port_samples(samples)
+    pos, gval, kmiss = big1.sparsify(psamples)
+    want = jb.score_batch_T(pos, gval, kmiss)
+    _eq(big1.score_batch_T(pos, gval, kmiss), want)
+    _eq(bigM.score_batch_T(pos, gval, kmiss), want)
+    gv = _spr_gval(rng, pos, gval, big1.P)
+    _eq(bigM.score_spr_T(pos, gv), big1.score_spr_T(pos, gv))
+    want = jb.place_batch(samples)
+    _eq(big1.place_batch(psamples), want)
+    _eq(bigM.place_batch(psamples), want)
+    with pytest.raises(ValueError, match="mesh"):
+        bigM.place_arrays(pos, gval, kmiss, with_second=True)
+
+
+def test_big_engine_mesh_is_flattened_and_scores_alike():
+    from usher_tpu_torch.parallel.mesh import make_mesh
+    rng = np.random.default_rng(6)
+    T, ref = random_mat(rng, n_leaves=40, n_positions=20)
+    samples = port_samples([random_sample(rng, ref) for _ in range(5)])
+    extra = [m for s in samples for m in s]
+    eng = BigPlacementEngine(port_tree(T), extra_mutations=extra,
+                             mesh=make_mesh(8, device="cpu"))
+    assert eng.mesh.shape == {"batch": 8}
+    one = BigPlacementEngine(port_tree(T), extra_mutations=extra,
+                             device="cpu")
+
+    def summary(results):
+        return [(r.best_score, r.num_best, r.best_node.identifier,
+                 [n.identifier for n in r.tied_nodes]) for r in results]
+    assert summary(eng.score_samples(samples)) == \
+        summary(one.score_samples(samples))
+    assert eng._big.mesh is eng.mesh
+
+
 def test_unported_branches_raise(monkeypatch):
-    """A device mesh (ROADMAP A11), the segment-query kernel (X9) and the
-    grouped engine (X6) raise instead of running something else."""
+    """The segment-query kernel (X9), the grouped engine (X6) and the SPR
+    search over a batch mesh (A7) raise instead of running something else;
+    a batch mesh itself scores and places (test_bigmat_mesh_identical)."""
     jb, tb, samples, _ = _pair(5)
     pos, gval, kmiss = tb.sparsify(samples)
     with pytest.raises(NotImplementedError, match="X6"):
@@ -273,10 +335,5 @@ def test_unported_branches_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="X9"):
         tb.place_arrays(pos, gval, kmiss)
     monkeypatch.setenv("USHER_TPU_SEG", "0")
-    tb.mesh = object()
-    with pytest.raises(NotImplementedError, match="A11"):
-        tb.place_arrays(pos, gval, kmiss)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tb.score_batch_T(pos, gval, kmiss)
-    with pytest.raises(NotImplementedError, match="A11"):
-        BigPlacementEngine(None, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        iv._spr_sharded_fn(None, "batch", tb.N, 4)

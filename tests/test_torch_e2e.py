@@ -5,9 +5,11 @@
 
 The placement outputs byte-match the committed smoke goldens, and every
 output file equals the JAX CLI's under -p, -M 2, -k 5 and -s, and with
---bigmat (the CSR BigMAT engine) under no flag, -s, -p and -k 5.  The
-engine's sparse and dense backends agree with the JAX engine on random
-MATs.
+--bigmat (the CSR BigMAT engine) under no flag, -s, -p and -k 5.  With
+--mesh-devices 8 (eight shards as CPU tensors; the JAX CLI on its eight
+virtual devices) the files equal the unsharded run's and the JAX CLI's,
+dense, under -s and with --bigmat.  The engine's sparse and dense backends
+agree with the JAX engine on random MATs.
 """
 
 import os
@@ -22,6 +24,7 @@ from usher_tpu_torch.placement.driver import PlacementEngine
 
 from conftest import REFERENCE_TEST_DIR
 from test_placement import random_mat, random_sample
+from test_torch_hostlayers import port_samples, port_tree
 
 GLOBAL_NH = os.path.join(REFERENCE_TEST_DIR, "global_phylo.nh")
 GLOBAL_VCF = os.path.join(REFERENCE_TEST_DIR, "global_samples.vcf")
@@ -114,11 +117,41 @@ def test_bigmat_cli_matches_jax_cli(built, tmp_path, flags, capsys):
                 assert outs[1][fname] == f.read(), f"{fname} vs golden"
 
 
+@pytest.mark.parametrize("flags", [[], ["-s", "--batch-size", "2"],
+                                   ["--bigmat"]])
+def test_mesh_cli_matches_unsharded_and_jax_cli(built, tmp_path, flags,
+                                                capsys):
+    """--mesh-devices 8: the three placement files byte-equal the port's
+    unsharded run and the JAX CLI's run over its 8-device mesh."""
+    runs = (("torch_mesh", torch_main, "8"), ("torch_single", torch_main, "0"),
+            ("jax_mesh", jax_main, "8"))
+    outs = {}
+    for name, main, mesh in runs:
+        outdir = str(tmp_path / name)
+        assert main(["-i", built, "-v", NEW_VCF, "-d", outdir,
+                     "--mesh-devices", mesh, *flags]) == 0
+        outs[name] = _files(outdir)
+        err = capsys.readouterr().err
+        assert ("Sharding placement over a {'data': 2, 'model': 4} device "
+                "mesh." in err) == (mesh == "8")
+    for fname, _ in GOLDEN_OF:
+        assert outs["torch_mesh"][fname] == outs["torch_single"][fname], fname
+        assert outs["torch_mesh"][fname] == outs["jax_mesh"][fname], fname
+    assert sorted(outs["torch_mesh"]) == sorted(outs["jax_mesh"])
+
+
+def test_mesh_devices_auto_means_no_mesh_on_one_device(built, tmp_path,
+                                                       capsys):
+    assert torch_main(["-i", built, "-v", NEW_VCF, "-d", str(tmp_path),
+                       "--mesh-devices", "-1"]) == 0
+    assert "Sharding placement" not in capsys.readouterr().err
+
+
 def test_unported_modes_exit_with_error(built, tmp_path, capsys):
-    for flags in (["--pb-direct"], ["--mesh-devices", "2"]):
-        assert torch_main(["-i", built, "-v", NEW_VCF, "-d",
-                           str(tmp_path), *flags]) == 1
-        assert "not supported by the PyTorch port" in capsys.readouterr().err
+    assert torch_main(["-i", built, "-v", NEW_VCF, "-d", str(tmp_path),
+                       "--pb-direct"]) == 1
+    err = capsys.readouterr().err
+    assert "not supported by the PyTorch port" in err and "A6b" in err
     with pytest.raises(NotImplementedError, match="A11"):
         torch_main(["-i", built, "-v", NEW_VCF, "-d", str(tmp_path),
                     "--distributed"])
@@ -141,9 +174,10 @@ def test_engine_backends_match_jax_engine(seed):
 
     want = summary(JEngine(T, backend="dense").score_samples(
         samples, want_matrix=True))
+    psamples = port_samples(samples)
     for backend in ("sparse", "dense"):
-        eng = PlacementEngine(T, backend=backend, device="cpu")
-        assert summary(eng.score_samples(samples, want_matrix=True)) == want
-        best, num_best = eng.best_placements(samples)
+        eng = PlacementEngine(port_tree(T), backend=backend, device="cpu")
+        assert summary(eng.score_samples(psamples, want_matrix=True)) == want
+        best, num_best = eng.best_placements(psamples)
         assert best.tolist() == [w[0] for w in want]
         assert num_best.tolist() == [w[1] for w in want]

@@ -8,10 +8,12 @@ import pytest
 
 from usher_tpu.core.flat import FlatMAT as JFlatMAT
 from usher_tpu.core.flat import collect_positions as jcollect_positions
-from usher_tpu.core.tree import Mutation
+from usher_tpu.core import tree as jtree
+from usher_tpu_torch.core import tree as ttree
 from usher_tpu_torch.core.flat import FlatMAT, collect_positions
 
 from test_placement import BASES, random_mat, random_sample
+from test_torch_hostlayers import port_samples, port_tree
 
 
 def _path_state(node, p, ref):
@@ -49,36 +51,39 @@ def _assert_same(jflat, flat):
 def test_flat_parity_through_surgery_and_growth(seed):
     rng = np.random.default_rng(seed)
     T, ref = random_mat(rng, n_leaves=12)
-    for a, b in zip(collect_positions(T), jcollect_positions(T)):
+    PT = port_tree(T)          # the port's own tree, edited in lockstep
+    for a, b in zip(collect_positions(PT), jcollect_positions(T)):
         np.testing.assert_array_equal(a, b)
     # every site of the random MAT, so the samples below can name any
     positions = np.array(sorted(ref), dtype=np.int64)
     refarr = np.array([ref[p] for p in positions.tolist()], dtype=np.uint8)
     chrom = "c"
     jflat = JFlatMAT(T, positions, refarr, chrom)
-    flat = FlatMAT(T, positions, refarr, chrom)
+    flat = FlatMAT(PT, positions, refarr, chrom)
     _assert_same(jflat, flat)
     cap0 = flat.cap
+    sides = ((T, jflat, jtree), (PT, flat, ttree))
 
     # graft enough leaves to outgrow the capacity, with sibling splits
     # (new internal node + re-parent) among them
     for i in range(cap0 - flat.n_slots + 5):
         nodes = T.breadth_first_expansion()
-        target = nodes[int(rng.integers(len(nodes)))]
-        if target.parent is not None and i % 3 == 0:
-            mid = T.create_node(f"mid{i}", target.parent)
-            T.move_node(target.identifier, mid.identifier)
-            for fl in (jflat, flat):
+        target_id = nodes[int(rng.integers(len(nodes)))].identifier
+        split = T.get_node(target_id).parent is not None and i % 3 == 0
+        p = int(positions[int(rng.integers(len(positions)))])
+        pick = int(rng.integers(3))
+        for tree, fl, mod in sides:
+            target = tree.get_node(target_id)
+            if split:
+                mid = tree.create_node(f"mid{i}", target.parent)
+                tree.move_node(target.identifier, mid.identifier)
                 fl.add_node(mid)
                 fl.reparent(target)
-            # add_node set mid.slot in each; both assign the same slot
-            target = mid
-        leaf = T.create_node(f"new{i}", target)
-        p = int(positions[int(rng.integers(len(positions)))])
-        state = _path_state(target, p, ref[p])
-        mut = [b for b in BASES if b != state][int(rng.integers(3))]
-        leaf.add_mutation(Mutation("c", p, ref[p], state, mut))
-        for fl in (jflat, flat):
+                target = mid
+            leaf = tree.create_node(f"new{i}", target)
+            state = _path_state(target, p, ref[p])
+            mut = [b for b in BASES if b != state][pick]
+            leaf.add_mutation(mod.Mutation("c", p, ref[p], state, mut))
             fl.add_node(leaf)
         if i % 7 == 0:
             _assert_same(jflat, flat)
@@ -86,7 +91,7 @@ def test_flat_parity_through_surgery_and_growth(seed):
     _assert_same(jflat, flat)
 
     samples = [random_sample(rng, ref) for _ in range(4)]
-    for a, b in zip(flat.encode_samples(samples),
+    for a, b in zip(flat.encode_samples(port_samples(samples)),
                     jflat.encode_samples(samples)):
         np.testing.assert_array_equal(a, b)
         assert a.dtype == b.dtype

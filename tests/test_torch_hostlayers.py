@@ -1,0 +1,375 @@
+"""The port's own host layers against the JAX package's originals.
+
+usher_tpu_torch keeps a copy of every host module it needs (tree, newick,
+pb, VCF, host oracle, instrumentation, subtree writers) and imports nothing
+of usher_tpu.  Each copy is held against its original here: the same bytes
+(newick, pb, VCF) or the same seeded trees and samples go through both, and
+what comes out must be equal (files byte for byte).
+
+``port_tree`` and ``port_samples`` rebuild a usher_tpu tree or sample list
+from the port's classes; the other port tests use them so that each side
+of a parity test works on objects of its own package.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+from usher_tpu.core import nuc as jnuc
+from usher_tpu.core import tree as jtree
+from usher_tpu.io import newick as jnewick
+from usher_tpu.io import pbio as jpbio
+from usher_tpu.io import proto_wire as jpw
+from usher_tpu.io import vcf as jvcf
+from usher_tpu.placement import mapper as jmapper
+from usher_tpu.tools import subtrees as jsubtrees
+from usher_tpu.utils import instrument as jinstrument
+from usher_tpu_torch.core import nuc as tnuc
+from usher_tpu_torch.core import tree as ttree
+from usher_tpu_torch.io import newick as tnewick
+from usher_tpu_torch.io import pbio as tpbio
+from usher_tpu_torch.io import proto_wire as tpw
+from usher_tpu_torch.io import vcf as tvcf
+from usher_tpu_torch.placement import mapper as tmapper
+from usher_tpu_torch.tools import subtrees as tsubtrees
+from usher_tpu_torch.utils import instrument as tinstrument
+
+from conftest import REFERENCE_TEST_DIR
+from test_placement import random_mat, random_sample
+
+GLOBAL_NH = os.path.join(REFERENCE_TEST_DIR, "global_phylo.nh")
+GLOBAL_VCF = os.path.join(REFERENCE_TEST_DIR, "global_samples.vcf")
+NEW_VCF = os.path.join(REFERENCE_TEST_DIR, "new_samples.vcf")
+
+
+# --- helpers shared with the other port tests --------------------------------
+
+def port_mutation(m):
+    return ttree.Mutation(m.chrom, m.position, m.ref_nuc, m.par_nuc,
+                          m.mut_nuc, m.is_missing)
+
+
+def port_samples(samples):
+    """Lists of usher_tpu Mutations as lists of the port's Mutations."""
+    return [[port_mutation(m) for m in muts] for muts in samples]
+
+
+def port_tree(T):
+    """A usher_tpu Tree rebuilt from the port's Tree, Node and Mutation, in
+    the same child order and with the same internal-node counter."""
+    t = ttree.Tree()
+    t.curr_internal_node = T.curr_internal_node
+    t.condensed_nodes = {k: list(v) for k, v in T.condensed_nodes.items()}
+    t.condensed_leaves = set(T.condensed_leaves)
+    if T.root is None:
+        return t
+    stack = [(T.root, None)]
+    while stack:
+        cur, new_parent = stack.pop()
+        node = ttree.Node(cur.identifier, new_parent, cur.branch_length)
+        node.mutations = [port_mutation(m) for m in cur.mutations]
+        node.clade_annotations = list(cur.clade_annotations)
+        t._all_nodes[node.identifier] = node
+        if new_parent is None:
+            t.root = node
+        else:
+            new_parent.children.append(node)
+        # children are appended in pop order: push them reversed
+        for c in reversed(cur.children):
+            stack.append((c, node))
+    return t
+
+
+def tree_signature(T):
+    """Everything a tree holds that an output can show, in DFS order."""
+    return [(n.identifier, n.parent.identifier if n.parent else None,
+             n.level, n.branch_length, list(n.clade_annotations),
+             [(m.chrom, m.position, m.ref_nuc, m.par_nuc, m.mut_nuc,
+               m.is_missing) for m in n.mutations])
+            for n in T.depth_first_expansion()]
+
+
+def _nwk(mod, T, **kw):
+    return mod.write_newick(T, print_internal=True, print_branch_len=True,
+                            **kw)
+
+
+@pytest.fixture(scope="module")
+def fixture_pb(tmp_path_factory):
+    """The fixture MAT as a pb, built by the JAX CLI."""
+    from usher_tpu.cli.usher_cli import main as jax_main
+    out = str(tmp_path_factory.mktemp("host_pb"))
+    pb = os.path.join(out, "out.pb")
+    assert jax_main(["-t", GLOBAL_NH, "-v", GLOBAL_VCF, "-o", pb, "-d", out,
+                     "--mesh-devices", "0"]) == 0
+    return pb
+
+
+# --- core/nuc, io/proto_wire ---------------------------------------------------
+
+def test_nuc_tables_match():
+    for ch in "ACGTRYSWKMBDHVN-acgtn?":
+        assert tnuc.nuc_id_from_char(ch) == jnuc.nuc_id_from_char(ch)
+    for i in range(16):
+        assert tnuc.char_from_nuc_id(i) == jnuc.char_from_nuc_id(i)
+        assert tnuc.nt_list_from_nuc_id(i) == jnuc.nt_list_from_nuc_id(i)
+        assert tnuc.nuc_id_from_nt_list(tnuc.nt_list_from_nuc_id(i)) == \
+            jnuc.nuc_id_from_nt_list(jnuc.nt_list_from_nuc_id(i))
+        if i:
+            assert tnuc.lowest_set_bit(i) == jnuc.lowest_set_bit(i)
+    for i in (1, 2, 4, 8):
+        assert tnuc.nt_from_nuc_id(i) == jnuc.nt_from_nuc_id(i)
+    assert tnuc.N == jnuc.N
+
+
+def test_proto_wire_is_the_same_source():
+    """proto_wire has no imports of its own package: the copy is verbatim."""
+    with open(jpw.__file__, "rb") as a, open(tpw.__file__, "rb") as b:
+        assert a.read() == b.read()
+
+
+# --- core/tree -------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tree_expansions_and_copy_match(seed):
+    rng = np.random.default_rng(seed)
+    T, _ = random_mat(rng, n_leaves=40, n_positions=20)
+    P = port_tree(T)
+    assert tree_signature(P) == tree_signature(T)
+    assert [n.identifier for n in P.breadth_first_expansion()] == \
+        [n.identifier for n in T.breadth_first_expansion()]
+    assert [(n.dfs_idx, n.dfs_end_idx) for n in P.depth_first_expansion()] == \
+        [(n.dfs_idx, n.dfs_end_idx) for n in T.depth_first_expansion()]
+    assert P.get_leaves_ids() == T.get_leaves_ids()
+    assert P.get_parsimony_score() == T.get_parsimony_score()
+    assert P.get_max_level() == T.get_max_level()
+    assert P.num_nodes() == T.num_nodes()
+    leaf = T.get_leaves_ids()[3]
+    assert [n.identifier for n in P.rsearch(leaf, True)] == \
+        [n.identifier for n in T.rsearch(leaf, True)]
+    C = P.copy()
+    assert isinstance(C, ttree.Tree) and C is not P
+    assert tree_signature(C) == tree_signature(T.copy())
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_tree_surgery_matches(seed):
+    """create/move/remove, collapse, condense and uncondense change both
+    trees alike."""
+    rng = np.random.default_rng(seed)
+    T, _ = random_mat(rng, n_leaves=30, n_positions=12, mut_rate=0.15)
+    P = port_tree(T)
+    for tree, mod in ((T, jtree), (P, ttree)):
+        leaves = tree.get_leaves_ids()
+        nid = tree.new_internal_node_id()
+        target = tree.get_node(leaves[2])
+        tree.create_node(nid, target.parent)
+        tree.move_node(leaves[2], nid)
+        tree.create_node("added", nid)
+        tree.get_node("added").add_mutation(
+            mod.Mutation("c", 105, 1, 1, 4))
+        tree.remove_node(leaves[5], True)
+    assert tree_signature(P) == tree_signature(T)
+    for tree in (T, P):
+        tree.collapse_tree()
+        tree.condense_leaves()
+    assert tree_signature(P) == tree_signature(T)
+    assert P.condensed_nodes == T.condensed_nodes
+    assert _nwk(tnewick, P) == _nwk(jnewick, T)
+    for tree in (T, P):
+        tree.uncondense_leaves()
+    assert tree_signature(P) == tree_signature(T)
+
+
+def test_add_mutation_chronology_matches():
+    """Same-position updates and reversals of Node.add_mutation."""
+    def run(mod):
+        t = mod.Tree()
+        t.create_node("r")
+        n = t.create_node("a", "r")
+        for args in (("c", 7, 1, 1, 2), ("c", 3, 4, 4, 8), ("c", 7, 1, 2, 4),
+                     ("c", 3, 4, 8, 4), ("c", 9, 2, 2, 1)):
+            n.add_mutation(mod.Mutation(*args))
+        return [(m.position, m.par_nuc, m.mut_nuc) for m in n.mutations]
+    assert run(ttree) == run(jtree)
+
+
+# --- io/newick, io/pbio, io/vcf ----------------------------------------------------
+
+def test_newick_parse_write_bytes():
+    Tj = jnewick.parse_newick(GLOBAL_NH)
+    Tt = tnewick.parse_newick(GLOBAL_NH)
+    assert isinstance(Tt, ttree.Tree)
+    assert tree_signature(Tt) == tree_signature(Tj)
+    for kw in ({}, {"retain_original_branch_len": True},
+               {"uncondense_leaves": True}):
+        assert _nwk(tnewick, Tt, **kw) == _nwk(jnewick, Tj, **kw)
+    assert tnewick.write_newick(Tt, print_internal=False,
+                                print_branch_len=False) == \
+        jnewick.write_newick(Tj, print_internal=False,
+                             print_branch_len=False)
+    s = "((A:1,B:0.5)x:2,(C,D:3e-1)y,E);"
+    assert tree_signature(tnewick.parse_newick_string(s)) == \
+        tree_signature(jnewick.parse_newick_string(s))
+
+
+def test_pb_load_save_bytes(fixture_pb, tmp_path):
+    Tj = jpbio.load_mat_pb(fixture_pb)
+    Tt = tpbio.load_mat_pb(fixture_pb)
+    assert isinstance(Tt, ttree.Tree)
+    assert tree_signature(Tt) == tree_signature(Tj)
+    assert Tt.condensed_nodes == Tj.condensed_nodes
+    out_j, out_t = str(tmp_path / "j.pb"), str(tmp_path / "t.pb")
+    jpbio.save_mat_pb(Tj, out_j)
+    tpbio.save_mat_pb(Tt, out_t)
+    with open(out_j, "rb") as a, open(out_t, "rb") as b, \
+            open(fixture_pb, "rb") as c:
+        saved = b.read()
+        assert a.read() == saved
+        assert saved == c.read()
+
+
+def _missing_fields(missing):
+    return [(s.name, s.num_ambiguous,
+             [(m.chrom, m.position, m.ref_nuc, m.par_nuc, m.mut_nuc,
+               m.is_missing) for m in s.mutations]) for s in missing]
+
+
+def _vcf_fields(vcf):
+    return (list(vcf.sample_ids),
+            [(s.chrom, s.position, s.ref_nuc, list(s.variants))
+             for s in vcf.sites])
+
+
+def test_read_vcf_fields_build_mode():
+    """The port's pure-Python parser gives what the JAX package's reader
+    gives (its compiled parser where that is built)."""
+    Tj = jnewick.parse_newick(GLOBAL_NH)
+    Tt = tnewick.parse_newick(GLOBAL_NH)
+    mj, vj = jvcf.read_vcf(Tj, GLOBAL_VCF, create_new_mat=True)
+    mt, vt = tvcf.read_vcf(Tt, GLOBAL_VCF, create_new_mat=True)
+    assert _vcf_fields(vt) == _vcf_fields(vj)
+    assert _missing_fields(mt) == _missing_fields(mj)
+    assert _vcf_fields(tvcf.read_vcf_sites(NEW_VCF)) == \
+        _vcf_fields(jvcf.read_vcf_sites(NEW_VCF))
+
+
+def test_read_vcf_fields_placement_mode(fixture_pb):
+    Tj = jpbio.load_mat_pb(fixture_pb)
+    Tt = tpbio.load_mat_pb(fixture_pb)
+    mj, vj = jvcf.read_vcf(Tj, NEW_VCF, create_new_mat=False)
+    mt, vt = tvcf.read_vcf(Tt, NEW_VCF, create_new_mat=False)
+    assert len(mt) == 5
+    assert all(isinstance(m, ttree.Mutation) for s in mt for m in s.mutations)
+    assert _missing_fields(mt) == _missing_fields(mj)
+    assert _vcf_fields(vt) == _vcf_fields(vj)
+
+
+def test_read_vcf_gzip_and_bad_rows(tmp_path):
+    import gzip
+    with open(NEW_VCF, "rb") as f:
+        raw = f.read()
+    gz = str(tmp_path / "new.vcf.gz")
+    with gzip.open(gz, "wb") as f:
+        f.write(raw)
+    assert _vcf_fields(tvcf.read_vcf_sites(gz)) == \
+        _vcf_fields(jvcf.read_vcf_sites(NEW_VCF))
+    bad = str(tmp_path / "bad.vcf")
+    with open(bad, "w") as f:
+        f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\ts1\n"
+                "c\t5\t.\tA\tG\t.\t.\t.\tGT\n")
+    with pytest.raises(ValueError, match="Incorrect VCF format"):
+        tvcf.read_vcf_sites(bad)
+
+
+# --- placement/mapper -----------------------------------------------------------
+
+def _score_fields(d):
+    key = lambda m: (m.position, m.ref_nuc, m.par_nuc, m.mut_nuc,  # noqa: E731
+                     m.is_missing)
+    return (d.set_difference, d.node_num_mut, d.num_common, d.has_unique,
+            d.is_valid, [key(m) for m in d.excess],
+            [key(m) for m in d.imputed])
+
+
+@pytest.mark.parametrize("seed", [20, 21, 22])
+def test_score_placement_matches(seed):
+    rng = np.random.default_rng(seed)
+    T, ref = random_mat(rng, n_leaves=30, n_positions=15)
+    P = port_tree(T)
+    samples = [random_sample(rng, ref) for _ in range(5)]
+    psamples = port_samples(samples)
+    for nj, nt in zip(T.breadth_first_expansion(),
+                      P.breadth_first_expansion()):
+        for sj, st in zip(samples, psamples):
+            for vecs in (True, False):
+                assert _score_fields(tmapper.score_placement(
+                    nt, st, compute_vecs=vecs)) == _score_fields(
+                        jmapper.score_placement(nj, sj, compute_vecs=vecs))
+
+
+# --- tools/subtrees (with matutils get_subtree, rotate_for_display) ----------------
+
+def _dir_files(path):
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+@pytest.mark.parametrize("single", [False, True])
+def test_subtree_writers_match(tmp_path, single):
+    rng = np.random.default_rng(7)
+    T, _ = random_mat(rng, n_leaves=40, n_positions=15)
+    P = port_tree(T)
+    names = T.get_leaves_ids()[5:9]
+    outs = []
+    for name, mod, tree in (("j", jsubtrees, T), ("t", tsubtrees, P)):
+        out = str(tmp_path / name)
+        os.makedirs(out)
+        if single:
+            mod.write_single_subtree(tree, names, out, 10)
+        else:
+            mod.write_sample_subtrees(tree, names, out, 6)
+        outs.append(_dir_files(out))
+    assert outs[0] and outs[1] == outs[0]
+
+
+# --- utils/instrument -----------------------------------------------------------
+
+def test_instrumentor_trace_matches(tmp_path):
+    import json
+    shapes = []
+    for name, mod in (("j", jinstrument), ("t", tinstrument)):
+        path = str(tmp_path / f"{name}.json")
+        inst = mod.Instrumentor.get()
+        assert not inst.active
+        with mod.timeit("ignored"):
+            pass
+        inst.begin_session(path)
+        with mod.timeit("outer"):
+            with mod.timeit('in"ner'):
+                pass
+        inst.end_session()
+        with open(path) as f:
+            doc = json.load(f)
+        shapes.append((sorted(doc), [(e["name"], e["ph"], e["cat"],
+                                      sorted(e)) for e in doc["traceEvents"]]))
+        assert mod.Timer().stop() >= 0
+    assert shapes[0] == shapes[1]
+    assert [e[0] for e in shapes[1][1]] == ["in'ner", "outer"]
+
+
+def test_profile_session_from_env(tmp_path, monkeypatch):
+    path = str(tmp_path / "p.json")
+    monkeypatch.delenv("USHER_TPU_PROFILE", raising=False)
+    assert tinstrument.maybe_begin_session_from_env() is False
+    monkeypatch.setenv("USHER_TPU_PROFILE", path)
+    assert tinstrument.maybe_begin_session_from_env() is True
+    inst = tinstrument.Instrumentor.get()
+    assert inst.active
+    inst.end_session()
+    assert os.path.exists(path)
+    assert not hasattr(tinstrument, "apply_platform_env")

@@ -1,4 +1,5 @@
-"""The port imports no jax (directly or through usher_tpu) and no triton.
+"""The port imports no jax, no triton and nothing of the JAX package
+usher_tpu: it keeps its own copy of the host layers.
 
 Checked in a fresh interpreter, counting only modules that importing the
 port brings in (so an interpreter that preloads jax at start-up does not
@@ -19,8 +20,21 @@ PORT_MODULES = [
     "usher_tpu_torch.ops.interval",
     "usher_tpu_torch.ops.placement_sparse",
     "usher_tpu_torch.ops.sankoff",
+    "usher_tpu_torch.parallel.mesh",
+    "usher_tpu_torch.parallel.shard",
     "usher_tpu_torch.placement.big_engine",
     "usher_tpu_torch.placement.driver",
+    "usher_tpu_torch.tools.subtrees",
+    # what chip_smoke.py imports beyond the above
+    "usher_tpu_torch.core.flat",
+    "usher_tpu_torch.core.tree",
+    "usher_tpu_torch.io.newick",
+    "usher_tpu_torch.io.pbio",
+    "usher_tpu_torch.io.vcf",
+    "usher_tpu_torch.ops._build",
+    "usher_tpu_torch.ops.placement",
+    "usher_tpu_torch.utils.device",
+    "usher_tpu_torch.utils.instrument",
 ]
 
 PROBE = """
@@ -40,11 +54,40 @@ def test_port_imports_no_jax_and_no_triton():
     assert out.returncode == 0, out.stderr
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     new = mods["new"]
-    for banned in ("jax", "jaxlib", "triton", "usher_tpu.parallel"):
+    for banned in ("jax", "jaxlib", "triton", "usher_tpu"):
         hits = [m for m in new if m == banned or m.startswith(banned + ".")]
         assert not hits, f"importing the port pulled in {hits[:5]}"
     for name in PORT_MODULES[1:]:
         assert name in new, name
-    # the host layers the port shares with the JAX package
-    assert "usher_tpu.core.tree" in mods["all"]
-    assert "usher_tpu.placement.mapper" in mods["all"]
+    # the port's own host layers came in instead of the JAX package's
+    assert "usher_tpu_torch.core.tree" in mods["all"]
+    assert "usher_tpu_torch.placement.mapper" in mods["all"]
+    assert not [m for m in mods["all"]
+                if m == "usher_tpu" or m.startswith("usher_tpu.")]
+
+
+def _import_lines(path):
+    with open(path) as f:
+        return [line.strip() for line in f
+                if line.lstrip().startswith(("import ", "from "))]
+
+
+def test_no_source_line_imports_the_jax_package():
+    """No import statement of the port or of chip_smoke.py names usher_tpu,
+    jax or triton at module level or inside a function (triton may only be
+    imported inside the function that launches a Triton kernel; there is
+    none yet)."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "usher_tpu_torch")):
+        paths += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(paths) > 20
+    for path in paths:
+        for line in _import_lines(path):
+            words = line.replace(",", " ").split()
+            mods = [w for w in words[1:] if w not in ("import", "as")]
+            root_names = {words[1].split(".")[0]} | (
+                {m.split(".")[0] for m in mods} if words[0] == "import"
+                else set())
+            assert not root_names & {"usher_tpu", "jax", "jaxlib",
+                                      "triton"}, \
+                f"{os.path.relpath(path, REPO)}: {line}"

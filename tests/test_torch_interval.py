@@ -17,6 +17,7 @@ from usher_tpu.ops import interval as jiv
 from usher_tpu_torch.ops import interval as iv
 
 from test_placement import random_mat, random_sample
+from test_torch_hostlayers import port_tree
 
 
 def _t(x):
@@ -186,7 +187,7 @@ def test_dev_scores_equal_host_expansion():
     T, ref = random_mat(rng, n_leaves=50, n_positions=20)
     positions = np.array(sorted(ref), dtype=np.int64)
     refarr = np.array([ref[p] for p in positions.tolist()], dtype=np.uint8)
-    big = BigMAT.from_tree(T, positions, refarr, device="cpu")
+    big = BigMAT.from_tree(port_tree(T), positions, refarr, device="cpu")
     samples = [random_sample(rng, ref) for _ in range(5)]
     pos, gval, kmiss = big.sparsify(samples)
     N, B = big.N, pos.shape[0]

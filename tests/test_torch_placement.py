@@ -13,6 +13,7 @@ from usher_tpu_torch.core.flat import FlatMAT
 from usher_tpu_torch.ops import placement as dev
 
 from test_placement import random_mat, random_sample
+from test_torch_hostlayers import port_tree
 
 
 def _t(x):
@@ -25,7 +26,7 @@ def _case(seed, n_leaves=20, n_samples=5):
     positions = np.array(sorted(ref), dtype=np.int64)
     refarr = np.array([ref[p] for p in positions.tolist()], dtype=np.uint8)
     jflat = JFlatMAT(T, positions, refarr, "c")
-    flat = FlatMAT(T, positions, refarr, "c")
+    flat = FlatMAT(port_tree(T), positions, refarr, "c")
     samples = [random_sample(rng, ref) for _ in range(n_samples)]
     return jflat, flat, samples
 

@@ -23,6 +23,7 @@ from usher_tpu_torch.ops import placement_sparse as ps
 from usher_tpu_torch.utils.device import apply_platform_env
 
 from test_placement import random_mat, random_sample
+from test_torch_hostlayers import port_tree
 
 
 def _case(seed, n_leaves=20, n_positions=15, n_samples=5, n_entries=6):
@@ -31,7 +32,7 @@ def _case(seed, n_leaves=20, n_positions=15, n_samples=5, n_entries=6):
     positions = np.array(sorted(ref), dtype=np.int64)
     refarr = np.array([ref[p] for p in positions.tolist()], dtype=np.uint8)
     jflat = JFlatMAT(T, positions, refarr, "c")
-    flat = FlatMAT(T, positions, refarr, "c")
+    flat = FlatMAT(port_tree(T), positions, refarr, "c")
     samples = [random_sample(rng, ref, n_entries) for _ in range(n_samples)]
     return jflat, flat, samples
 
@@ -160,6 +161,80 @@ def test_score_entries_spr_matches_pallas(seed):
     assert not torch.equal(outs[False], outs[True])
 
 
+@pytest.mark.parametrize("k_slots", [4, 16])
+@pytest.mark.parametrize("spr", [False, True])
+def test_score_entries_3d_matches_pallas(k_slots, spr):
+    """B1-3d's plain twin equals _score_entries_3d (interpret mode) on the
+    real rows and samples of its [bt, n_pad, tb] tiles, with the TPU
+    kernel's own tile shape (tb = TBK // K, n_pad a multiple of TN), on
+    multi-base states; re-laid, the tiles are score_entries_T_plain."""
+    jflat, flat, samples = _case(70 + k_slots, n_leaves=30, n_samples=7,
+                                 n_entries=3)
+    rng = np.random.default_rng(k_slots)
+    _, parent = flat.sync()
+    st = _t(rng.integers(1, 16, size=tuple(flat.st_host.shape),
+                         dtype=np.uint8))
+    stp = dev.parent_states(st, parent, flat.root_slot)
+    base, nc_base, _ = ps.row_reductions(st, stp, flat.ref_dev)
+    pos, gval, kmiss = pp.sparsify(samples, jflat.pos_index, jflat.P_pad,
+                                   k_slots)
+    assert pos.shape[1] == k_slots
+    nonpad = pos < flat.P
+    gval[nonpad] = rng.integers(1, 16, size=int(nonpad.sum()),
+                                dtype=np.uint8)
+    w3, wn3, N, B, n_pad, b_pad = pp._score_entries_3d(
+        st.numpy(), stp.numpy(), flat.ref, base.numpy(), nc_base.numpy(),
+        pos, gval, kmiss, k_slots, spr=spr)
+    tb = pp.TBK // k_slots
+    assert n_pad % pp.TN == 0 and n_pad >= N and b_pad == tb
+    args = (st, stp, flat.ref_dev, base, nc_base, _t(pos), _t(gval),
+            _t(kmiss))
+    before = ps.score_entries_3d.launches
+    for fn in (ps.score_entries_3d_plain, ps.score_entries_3d):
+        s3, n3, N2, B2, n_pad2, b_pad2 = fn(*args, tb, spr=spr, n_pad=n_pad)
+        assert (N2, B2, n_pad2, b_pad2) == (N, B, n_pad, b_pad)
+        assert s3.shape == tuple(np.asarray(w3).shape) and \
+            s3.dtype == torch.int32
+        np.testing.assert_array_equal(s3.numpy()[:, :N, :B],
+                                      np.asarray(w3)[:, :N, :B])
+        np.testing.assert_array_equal(n3.numpy()[:, :N, :B],
+                                      np.asarray(wn3)[:, :N, :B])
+    assert ps.score_entries_3d.launches == before    # CPU: the plain twin
+    flat_T = ps.score_entries_T_plain(*args, spr=spr)
+    np.testing.assert_array_equal(ps.tiles_to_T(s3, N, B).numpy(),
+                                  flat_T[0].numpy())
+    np.testing.assert_array_equal(ps.tiles_to_T(n3, N, B).numpy(),
+                                  flat_T[1].numpy())
+
+
+@pytest.mark.parametrize("tb", [1, 3, 8])
+def test_score_entries_3d_tiles_any_width(tb):
+    """tb need not divide B, and n_pad defaults to N: sample b sits at
+    [b // tb, :, b % tb]."""
+    _, flat, samples = _case(80, n_leaves=20, n_samples=7)
+    st, parent = flat.sync()
+    stp = dev.parent_states(st, parent, flat.root_slot)
+    base, nc_base, _ = ps.row_reductions(st, stp, flat.ref_dev)
+    pos, gval, kmiss = (_t(x) for x in ps.sparsify(
+        samples, flat.pos_index, flat.P_pad))
+    args = (st, stp, flat.ref_dev, base, nc_base, pos, gval, kmiss)
+    s3, n3, N, B, n_pad, b_pad = ps.score_entries_3d(*args, tb)
+    assert (N, B, n_pad) == (st.shape[0], 7, st.shape[0])
+    assert b_pad == -(-7 // tb) * tb and s3.shape == (b_pad // tb, N, tb)
+    score_t, nc_t = ps.score_entries_T_plain(*args)
+    for b in range(B):
+        np.testing.assert_array_equal(s3[b // tb, :, b % tb].numpy(),
+                                      score_t[:, b].numpy())
+    np.testing.assert_array_equal(ps.tiles_to_T(n3, N, B).numpy(),
+                                  nc_t.numpy())
+    np.testing.assert_array_equal(
+        ps.tiles_from_T(score_t, tb, N).numpy(), s3.numpy())
+    with pytest.raises(ValueError, match="n_pad"):
+        ps.score_entries_3d(*args, tb, n_pad=N - 1)
+    with pytest.raises(ValueError, match="tb"):
+        ps.score_entries_3d(*args, 0)
+
+
 @pytest.mark.parametrize("seed,spr", [(60, False), (61, True), (62, True)])
 def test_score_cols_T_matches_pallas(seed, spr):
     """score_cols_T (pointer-doubled column states + B1 / B1-spr plain
@@ -269,8 +344,8 @@ def test_partial_fold_and_merge_match_plain(seed, rows):
         score_t.numpy(), nc_t.numpy(), nnm.numpy(), meta["active"],
         meta["is_leaf"], meta["is_root_mask"], meta["num_leaves"],
         meta["bfs_rank"], rows))
-    got = ps._merge_partials(parts[0], parts[1], parts[2], parts[3],
-                             m[4], flat.cap)
+    best, rank, num_best = ps.merge_partials(*parts)
+    got = (best, ps.row_of_rank(rank, m[4], flat.cap), num_best)
     want = ps.placement_reduce_plain(st, stp, flat.ref_dev, base, nc_base,
                                      nnm, *m, pos, gval, kmiss)
     for a, b in zip(got, want):
@@ -294,6 +369,8 @@ def test_kernel_wrappers_never_fall_back(monkeypatch, tmp_path):
     for spr in (False, True):
         with pytest.raises(ValueError, match="no B1 kernel"):
             ps.score_entries_T(*args, *slots, spr=spr)
+        with pytest.raises(ValueError, match="no B1-3d kernel"):
+            ps.score_entries_3d(*args, *slots, 4, spr=spr)
     node = tuple(torch.empty((N,), dtype=dt, **kw) for dt in (
         torch.int32, torch.bool, torch.bool, torch.bool, torch.int32,
         torch.int32))

@@ -17,6 +17,7 @@ from usher_tpu_torch.ops import sankoff
 
 from conftest import REFERENCE_TEST_DIR
 from test_sankoff import _random_case
+from test_torch_hostlayers import port_tree
 
 
 def _mutation_sets(T):
@@ -65,7 +66,7 @@ def test_sankoff_states_match_jax(seed):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_assign_states_matches_jax_random(seed):
     T1, vcf, _ = _random_case(np.random.default_rng(seed), 24, 12)
-    T2, _, _ = _random_case(np.random.default_rng(seed), 24, 12)
+    T2 = port_tree(T1)         # VcfData is plain data: both sides read it
     jsankoff.assign_states_from_vcf(T1, vcf)
     sankoff.assign_states_from_vcf(T2, vcf, "cpu")
     assert _mutation_sets(T2) == _mutation_sets(T1)
@@ -74,11 +75,16 @@ def test_assign_states_matches_jax_random(seed):
 def test_assign_states_matches_jax_fixture():
     nh = os.path.join(REFERENCE_TEST_DIR, "global_phylo.nh")
     vcf_path = os.path.join(REFERENCE_TEST_DIR, "global_samples.vcf")
+    from usher_tpu_torch.io.newick import parse_newick as port_parse_newick
+    from usher_tpu_torch.io.vcf import read_vcf as port_read_vcf
     trees = []
-    for assign in (jsankoff.assign_states_from_vcf,
-                   lambda T, v: sankoff.assign_states_from_vcf(T, v, "cpu")):
-        T = parse_newick(nh)
-        _, vcf = read_vcf(T, vcf_path, create_new_mat=True)
+    # each side loads the same files with its own readers
+    for parse, read, assign in (
+            (parse_newick, read_vcf, jsankoff.assign_states_from_vcf),
+            (port_parse_newick, port_read_vcf,
+             lambda T, v: sankoff.assign_states_from_vcf(T, v, "cpu"))):
+        T = parse(nh)
+        _, vcf = read(T, vcf_path, create_new_mat=True)
         assign(T, vcf)
         trees.append(T)
     want, got = (_mutation_sets(T) for T in trees)
@@ -88,7 +94,8 @@ def test_assign_states_matches_jax_fixture():
 
 
 def test_empty_vcf_is_a_no_op():
-    from usher_tpu.io.vcf import VcfData
+    from usher_tpu_torch.io.newick import parse_newick_string
+    from usher_tpu_torch.io.vcf import VcfData
     T = parse_newick_string("((L1,L2),L3);")
     sankoff.assign_states_from_vcf(T, VcfData(sample_ids=[], sites=[]), "cpu")
     assert all(not n.mutations for n in T.breadth_first_expansion())

@@ -2,8 +2,8 @@
 
 The JAX package ``usher_tpu`` stays the reference.  This package re-does its
 device layers in PyTorch, with the Pallas kernels written again by hand in
-CUDA C++ (``csrc/``), and reuses the JAX-free host layers of ``usher_tpu``
-(tree, I/O, host oracle) by import.  It never imports jax.
+CUDA C++ (``csrc/``), and keeps its own copy of the host layers (tree, I/O,
+host oracle).  It imports neither jax nor anything of ``usher_tpu``.
 
 The device is explicit: ``USHER_TPU_PLATFORM`` selects ``cuda`` (default) or
 ``cpu`` (utils/device.py).

@@ -3,8 +3,9 @@ parsimony, on the device that USHER_TPU_PLATFORM names (cuda by default).
 
 Counterpart of usher_tpu/cli/usher_cli.py with the same flags and messages;
 the flag surface mirrors the reference `usher` binary (src/usher.cpp:47-86).
-The classic Tree path and its --bigmat engine are ported; --pb-direct and a
-mesh of more than one device are later slices and exit with an error.
+The classic Tree path, its --bigmat engine and placement sharded over a
+device mesh (--mesh-devices N, parallel/mesh.py) are ported; --pb-direct and
+--distributed are later slices and stop with an error.
 """
 
 from __future__ import annotations
@@ -14,13 +15,12 @@ import os
 import sys
 import time
 
-from usher_tpu.io.newick import parse_newick
-from usher_tpu.io.pbio import load_mat_pb
-from usher_tpu.io.vcf import read_vcf
-from usher_tpu.utils.instrument import maybe_begin_session_from_env, timeit
-
+from ..io.newick import parse_newick
+from ..io.pbio import load_mat_pb
+from ..io.vcf import read_vcf
 from ..placement.driver import UsherOptions, run_usher
 from ..utils.device import apply_platform_env
+from ..utils.instrument import maybe_begin_session_from_env, timeit
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "the sequential reference semantics at any value")
     p.add_argument("--mesh-devices", type=int, default=-1,
                    help="Shard scoring over N devices (-1 auto, 0 off); "
-                        "only one device is supported so far")
+                        "more shards than cards share the cards")
     p.add_argument("--distributed", action="store_true",
                    help="Multi-host placement (not ported yet)")
     p.add_argument("--pb-direct", action="store_true",
@@ -82,13 +82,10 @@ def main(argv=None) -> int:
     if args.distributed or os.environ.get("USHER_TPU_DISTRIBUTED"):
         raise NotImplementedError("multi-host placement is not ported yet "
                                   "(ROADMAP A11, multi-GPU)")
-    for flag, on, slice_ in (("--pb-direct", args.pb_direct, "A6b"),
-                             ("--mesh-devices N>1", args.mesh_devices > 1,
-                              "A11")):
-        if on:
-            print(f"ERROR: {flag} is not supported by the PyTorch port yet "
-                  f"(ROADMAP {slice_})", file=sys.stderr)
-            return 1
+    if args.pb_direct:
+        print("ERROR: --pb-direct is not supported by the PyTorch port yet "
+              "(ROADMAP A6b)", file=sys.stderr)
+        return 1
 
     t0 = time.time()
     if args.tree:

@@ -23,9 +23,13 @@ kernel (ops/placement_sparse.score_cols_T).  The JAX module's n_pad
 capacity ladder (an XLA-shape workaround) is gone: DFS rows are exactly N,
 plus the interval engine's dump row N.
 
-Not ported yet, and raising NotImplementedError: a device mesh (ROADMAP
-A11), the segment-query kernel selected by USHER_TPU_SEG (X9) and the
-shared-ancestry grouped engine (X6).
+With ``mesh`` set (a 1-D parallel.mesh.Mesh) ``score_batch_T``,
+``score_spr_T`` and ``place_arrays``/``place_batch`` split the sample axis
+of a batch over the mesh's devices, each of which holds a copy of the epoch
+metadata and runs the host-expansion engine (X8) on its samples.
+
+Not ported yet, and raising NotImplementedError: the segment-query kernel
+selected by USHER_TPU_SEG (X9) and the shared-ancestry grouped engine (X6).
 """
 
 from __future__ import annotations
@@ -102,7 +106,8 @@ class BigMAT:
         self._ov = None          # overlay mutations: (node, col, par, mut,
         #                          dead) column-sorted numpy arrays
         self._cols_stale = False  # legacy column path unusable after appends
-        self.mesh = None         # a device mesh is not ported (ROADMAP A11)
+        self.mesh = None         # optional 1-D Mesh: shard the sample axis
+        #                          of a scoring batch over its devices
         self._precompute(num_leaves, bfs_rank)
 
     # --- construction -------------------------------------------------------
@@ -496,17 +501,12 @@ class BigMAT:
         nc_idx, nc_b, nc_val = r[nkeep], b_p[nkeep], d_nc[nkeep]
         return ev_idx, ev_b, ev_val, nc_idx, nc_b, nc_val, add0
 
-    def _t(self, a) -> torch.Tensor:
-        """A host array as a tensor on self.device (always a copy, so the
-        resident tensors never alias host arrays that appends edit)."""
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device,
-                                                           copy=True)
-
-    def _require_no_mesh(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "BigMAT over a device mesh is not ported yet (ROADMAP A11, "
-                "multi-GPU)")
+    def _t(self, a, device=None) -> torch.Tensor:
+        """A host array as a tensor on ``device`` (default self.device);
+        always a copy, so the resident tensors never alias host arrays that
+        appends edit."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device or self.device, copy=True)
 
     def _csc_dev(self):
         """Device-resident CSC index for the device event expansion (X5):
@@ -551,30 +551,82 @@ class BigMAT:
         self._csc_dev_cache = cache
         return cache
 
-    def _dfs_meta(self, spr: bool):
+    def _dfs_meta(self, spr: bool, sharded: bool = False):
         """Per-epoch DFS-ordered metadata, resident on the device (uploaded
         once per epoch, not per batch), plus dfs_of to map DFS rows back to
-        slots."""
-        self._require_no_mesh()
+        slots.  sharded=True gives one such dict per shard of the batch
+        mesh, replicated over its devices (parallel/shard.put_replicated:
+        shards on one device share the tensors)."""
         key = "_dfs_meta_spr" if spr else "_dfs_meta_plc"
-        cached = getattr(self, key, None)
-        if cached is not None:
-            return cached
+        cache = getattr(self, key, None)
+        if cache is None:
+            cache = {}
+            setattr(self, key, cache)
+        if sharded in cache:
+            return cache[sharded]
         o = self.dfs_order
         base = self.base_spr if spr else self.base
-        meta = {
-            "base": self._t(base.astype(np.int32)[o]),
-            "nc_base": self._t(self.nc_base[o]),
-            "num_mut": self._t(self.node_num_mut[o]),
-            "is_leaf": self._t(self.is_leaf[o]),
-            "is_root": self._t(self.is_root_mask[o]),
-            "active": self._t(self.active[o]),
-            "num_leaves": self._t(self.num_leaves[o]),
-            "bfs_rank": self._t(self.bfs_rank[o]),
-            "dfs_of": self._t(self.dfs_of.astype(np.int64)),
+        host = {
+            "base": base.astype(np.int32)[o],
+            "nc_base": self.nc_base[o],
+            "num_mut": self.node_num_mut[o],
+            "is_leaf": self.is_leaf[o],
+            "is_root": self.is_root_mask[o],
+            "active": self.active[o],
+            "num_leaves": self.num_leaves[o],
+            "bfs_rank": self.bfs_rank[o],
+            "dfs_of": self.dfs_of.astype(np.int64),
         }
-        setattr(self, key, meta)
+        if sharded:
+            from ..parallel.shard import put_replicated
+            rep = {k: put_replicated(self.mesh, a) for k, a in host.items()}
+            meta = [{k: v[i] for k, v in rep.items()}
+                    for i in range(self.mesh.size)]
+        else:
+            meta = {k: self._t(a) for k, a in host.items()}
+        cache[sharded] = meta
         return meta
+
+    def _sharded_events(self, ev, add0, B: int, spr: bool, fn):
+        """Run fn(meta, ev_tensors (6), add0_tensor, n_samples) once per
+        shard of the batch mesh, on the samples [lo, hi) that the shard
+        owns.  The host-expanded events (idx, b, val) x 2 are bucketed by
+        shard once (one stable sort by owning shard), and each shard
+        uploads its own run with sample ids made local.  Returns
+        [((lo, hi), result)] of the non-empty shards in order."""
+        from ..parallel.mesh import for_each_shard, split_bounds
+        from ..parallel.shard import put_batch
+        mesh = self.mesh
+        parts = mesh.size
+        bounds = split_bounds(B, parts)
+        width = max(1, bounds[0][1])
+        N = self.N
+        streams = []
+        for i, b, v in (ev[:3], ev[3:6]):
+            i, b, v = iv.pad_events(i, b, v, N)
+            owner = b // width
+            order = np.argsort(owner, kind="stable")
+            cuts = np.searchsorted(owner[order], np.arange(parts + 1))
+            streams.append((i[order], b[order], v[order], cuts))
+        add0_sh = put_batch(mesh, add0.astype(np.int32))
+        metas = self._dfs_meta(spr, sharded=True)
+
+        def one(idx):
+            k = idx[0]
+            lo, hi = bounds[k]
+            if hi == lo:
+                return None
+            device = mesh.devices[idx]
+            tensors = []
+            for i, b, v, cuts in streams:
+                run = slice(cuts[k], cuts[k + 1])
+                tensors += [self._t(i[run], device),
+                            self._t(b[run] - lo, device),
+                            self._t(v[run], device)]
+            return fn(metas[k], tensors, add0_sh[k], hi - lo)
+        res = for_each_shard(mesh, one)
+        return [(bounds[idx[0]], res[idx]) for idx in mesh.indices()
+                if res[idx] is not None]
 
     def _score_interval(self, pos, gval, kmiss, spr: bool):
         """[N, B] score/nc via the interval engine (X8), in slot order:
@@ -582,6 +634,20 @@ class BigMAT:
         B = pos.shape[0]
         N = self.N
         *ev, add0 = self._events(pos, gval, kmiss, spr)
+        if self.mesh is not None:
+            # each device scores its samples and maps its rows back to
+            # slot order; the host joins the column blocks
+            def shard(meta, tensors, add0_t, b):
+                s, n = iv.interval_scores(*tensors, meta["base"],
+                                          meta["nc_base"], add0_t, N, b)
+                return s[meta["dfs_of"]], n[meta["dfs_of"]]
+            out = tuple(torch.empty((N, B), dtype=torch.int32)
+                        for _ in range(2))
+            for (lo, hi), blocks in self._sharded_events(ev, add0, B, spr,
+                                                         shard):
+                for whole, block in zip(out, blocks):
+                    whole[:, lo:hi].copy_(block)
+            return tuple(whole.numpy() for whole in out)
         meta = self._dfs_meta(spr)
         score_dfs, nc_dfs = iv.interval_scores(
             *(self._t(a) for a in iv.pad_events(*ev[:3], N)),
@@ -1218,13 +1284,17 @@ class BigMAT:
         batches carry many identical variant sets.  The events are
         expanded on the device from the resident CSC (X5) unless a column
         of the batch holds more than DEV_MAX_OCCUPANCY mutations; then the
-        host expands them (X8)."""
-        self._require_no_mesh()
+        host expands them (X8).  Under a mesh the batch is split over the
+        mesh's devices, each running X8's fused placement on its samples
+        (no dedup, runner-up or clade histogram there, as in the JAX
+        package)."""
         if os.environ.get("USHER_TPU_SEG", "0") != "0":
             raise NotImplementedError(
                 "the segment-query placement kernel (USHER_TPU_SEG) is not "
                 "ported yet (ROADMAP X9)")
         B0 = pos.shape[0]
+        if self.mesh is not None:
+            return self._place_sharded(pos, gval, kmiss, with_second, clades)
         if _dedup and B0 > 1:
             packed = np.concatenate(
                 [pos.astype(np.int64), gval.astype(np.int64),
@@ -1276,6 +1346,27 @@ class BigMAT:
         if clades is not None:
             *out, hist = out
         return ("dev", (out, hist, B, with_second, self.dfs_order, N))
+
+    def _place_sharded(self, pos, gval, kmiss, with_second, clades):
+        """place_arrays_begin over the batch mesh (counterpart of
+        ops/interval._place_sharded_fn in the JAX package)."""
+        if with_second or clades is not None:
+            raise ValueError("with_second/clades are not composed with "
+                             "the mesh sharded path")
+        self._flush()
+        B, N = pos.shape[0], self.N
+        *ev, add0 = self._events(pos, gval, kmiss, spr=False)
+
+        def shard(meta, tensors, add0_t, b):
+            return iv.interval_place(
+                *tensors, meta["base"], meta["nc_base"], add0_t,
+                meta["num_mut"], meta["is_leaf"], meta["is_root"],
+                meta["active"], meta["num_leaves"], meta["bfs_rank"], N, b)
+        parts = self._sharded_events(ev, add0, B, False, shard)
+        lead = self.mesh.lead
+        out = [torch.cat([p[k].to(torch.int32).to(lead) for _, p in parts])
+               for k in range(4)]
+        return ("dev", (out, None, B, False, self.dfs_order, N))
 
     def _unpack_place(self, packed, B, with_second, dfs_order=None,
                       N=None):

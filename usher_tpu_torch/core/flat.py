@@ -9,15 +9,22 @@ changes an existing node's path state, so the device arrays are patched row
 by row (``sync``) instead of rebuilt.  A host mirror (``st_host``,
 ``parent_slot``) takes the edits first.  Order metadata (BFS rank, leaf
 counts) is recomputed on the host per scoring call.
+
+With a device mesh (parallel/mesh.py) the [cap, P_pad] rows are split over
+the mesh's "model" shards and the parent path states ``stp`` are kept
+beside ``st``, on the host and on the device, so that a node shard scores
+without reading another shard's rows.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-from usher_tpu.core.nuc import N as NUC_N
-from usher_tpu.core.tree import Node, Tree
+from .nuc import N as NUC_N
+from .tree import Node, Tree
 
 _LANE = 128
 
@@ -49,12 +56,20 @@ def collect_positions(T: Tree, vcf=None):
 
 class FlatMAT:
     """The MAT as device tensors ``st`` [cap, P_pad] uint8 and ``parent``
-    [cap] int32 on ``device``, with their host mirrors."""
+    [cap] int32 on ``device``, with their host mirrors.
+
+    mesh: optional parallel.mesh.Mesh with ("data", "model") axes.  Then
+    ``st`` and ``stp`` live node-sharded over "model" (nested lists
+    ``x[d][m]`` of [cap / model, P_pad] tensors, see parallel/mesh.py),
+    ``stp_host`` mirrors stp, ``device`` is the mesh's lead device, and
+    ``cap`` is kept a multiple of the model size."""
 
     def __init__(self, T: Tree, positions: np.ndarray, ref: np.ndarray,
-                 chrom: str = "", device: torch.device | str = "cpu"):
+                 chrom: str = "", device: torch.device | str = "cpu",
+                 mesh=None):
         self.tree = T
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh.lead
         self.positions = positions
         self.pos_index = {int(p): i for i, p in enumerate(positions)}
         self.chrom = chrom
@@ -66,7 +81,10 @@ class FlatMAT:
 
         nodes = T.depth_first_expansion()
         n = len(nodes)
-        self.cap = max(_pad_to(n + max(64, n // 4), _LANE), _LANE)
+        # a multiple of the lane width and, under a mesh, of the model size
+        # (doubling in _grow keeps both)
+        unit = _LANE if mesh is None else math.lcm(_LANE, mesh.shape["model"])
+        self.cap = _pad_to(n + max(64, n // 4), unit)
         self.n_slots = 0
         self.st_host = np.zeros((self.cap, self.P_pad), dtype=np.uint8)
         self.parent_slot = np.zeros(self.cap, dtype=np.int32)
@@ -88,6 +106,11 @@ class FlatMAT:
             self.st_host[slot] = row
 
         self.root_slot = T.root.slot
+        if mesh is not None:
+            self.stp_host = self.st_host[self.parent_slot].copy()
+            self.stp_host[self.root_slot] = self.st_host[self.root_slot]
+        else:
+            self.stp_host = None
         self._put_device()
         self._dirty: list[int] = []
 
@@ -96,8 +119,15 @@ class FlatMAT:
     def _put_device(self) -> None:
         # copy=True: on the CPU the device arrays must not alias the host
         # mirror, or host edits would reach them before sync()
-        self._st_dev = torch.from_numpy(self.st_host).to(self.device,
-                                                          copy=True)
+        if self.mesh is not None:
+            from ..parallel.mesh import put_nodes, put_replicated
+            self._st_dev = put_nodes(self.mesh, self.st_host)
+            self._stp_dev = put_nodes(self.mesh, self.stp_host)
+            self.ref_mesh = put_replicated(self.mesh, self.ref)
+        else:
+            self._st_dev = torch.from_numpy(self.st_host).to(self.device,
+                                                              copy=True)
+            self._stp_dev = None
         self._parent_dev = torch.from_numpy(self.parent_slot).to(
             self.device, copy=True)
 
@@ -111,6 +141,10 @@ class FlatMAT:
         par = np.zeros(new_cap, dtype=np.int32)
         par[: self.cap] = self.parent_slot
         self.parent_slot = par
+        if self.stp_host is not None:
+            stp = np.zeros((new_cap, self.P_pad), dtype=np.uint8)
+            stp[: self.cap] = self.stp_host
+            self.stp_host = stp
         self._slot_node.extend([None] * (new_cap - self.cap))
         self.cap = new_cap
         self._put_device()
@@ -134,23 +168,53 @@ class FlatMAT:
             if m.position >= 0:
                 row[self.pos_index[m.position]] = m.mut_nuc
         self.st_host[slot] = row
+        if self.stp_host is not None:
+            self.stp_host[slot] = parent_row
         self._dirty.append(slot)
         return slot
 
     def reparent(self, node: Node) -> None:
         """Record a parent change (a sibling split re-grafts the best node
-        under a new internal node); path states are unchanged."""
+        under a new internal node); path states are unchanged, only the
+        parent pointer and hence the node's stp row move."""
         self.parent_slot[node.slot] = node.parent.slot
-        self._dirty.append(-1)  # parent array refresh marker
+        if self.stp_host is not None:
+            self.stp_host[node.slot] = self.st_host[node.parent.slot]
+            self._dirty.append(node.slot)
+        else:
+            self._dirty.append(-1)  # parent array refresh marker
 
-    def sync(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """Flush pending host-side edits to the device; returns (st, parent).
+    def _patch_shards(self, slots) -> None:
+        """Write the host rows ``slots`` of st and stp into the node shards
+        that own them (every distinct tensor of a shard once)."""
+        rows_per = self.cap // self.mesh.shape["model"]
+        slots = np.asarray(slots, dtype=np.int64)
+        owner = slots // rows_per
+        for m in np.unique(owner).tolist():
+            mine = slots[owner == m]
+            local = mine - m * rows_per
+            for host, sharded in ((self.st_host, self._st_dev),
+                                  (self.stp_host, self._stp_dev)):
+                done = set()
+                for per_d in sharded:
+                    t = per_d[m]
+                    if id(t) in done:
+                        continue
+                    done.add(id(t))
+                    idx = torch.from_numpy(local).to(t.device)
+                    t[idx] = torch.from_numpy(host[mine]).to(t.device)
+
+    def sync(self):
+        """Flush pending host-side edits to the device; returns (st, parent)
+        (under a mesh st is the node-sharded nested list).
 
         Dirty rows are written with one indexed store; the slots are unique
         and sorted, so the store sees no duplicate index."""
         if self._dirty:
             slots = sorted({s for s in self._dirty if s >= 0})
-            if slots:
+            if slots and self.mesh is not None:
+                self._patch_shards(slots)
+            elif slots:
                 idx = torch.tensor(slots, dtype=torch.long, device=self.device)
                 rows = torch.from_numpy(self.st_host[slots]).to(self.device)
                 self._st_dev[idx] = rows
@@ -158,6 +222,14 @@ class FlatMAT:
                 self.device, copy=True)
             self._dirty = []
         return self._st_dev, self._parent_dev
+
+    def sync_mesh(self):
+        """Mesh-mode flush: returns (st, stp), both node-sharded over the
+        "model" axis."""
+        if self.mesh is None:
+            raise ValueError("sync_mesh needs a FlatMAT built with a mesh")
+        self.sync()
+        return self._st_dev, self._stp_dev
 
     # --- per-call metadata --------------------------------------------------
 

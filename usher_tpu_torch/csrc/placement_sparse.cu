@@ -22,6 +22,19 @@
 //    path (usher_tpu_torch/core/bigmat.py::_score_chunk) calls it with the
 //    pointer-doubled [N, C] column states as st/stp.  What bounds it is the
 //    same as for B1: reading the N x C packed bytes of st and stp once.
+// B1-3d usher_score_entries_3d replaces
+//    usher_tpu/ops/placement_pallas.py::_score_entries_3d: B1 (or B1-spr)
+//    with the two outputs left in sample-tile-major tiles [bt, n_pad, tb],
+//    score3[b / tb][n][b % tb], so that a consumer walking one sample tile
+//    reads a contiguous [n_pad, tb] slab.  It is the same kernel with the
+//    kTiled output addressing; its bound is B1's, as it moves the same bytes
+//    and does the same integer work.
+// mesh B1 (usher_tpu/parallel/mesh.py::sharded_sparse_score_fn, B1 under a
+//    shard_map) is B1 launched once per (data, model) shard on the shard's
+//    own device and stream, by usher_tpu_torch/parallel/mesh.py.  Every
+//    launcher therefore takes the device ordinal, makes it current for the
+//    launch (the shared-memory attribute holds per device, and a stream
+//    belongs to one device) and restores the caller's device.
 // B2 usher_placement_partials replaces
 //    usher_tpu/ops/placement_pallas.py::_kernel_reduce (reached through
 //    placement_step_sparse): it adds placement validity and a per-node-block
@@ -141,8 +154,10 @@ __device__ __forceinline__ void entry_sums(const uint8_t* __restrict__ row,
 
 // B1 (kSpr false) and B1-spr (kSpr true): one block per `rows` node rows;
 // work items (row, b) with b fastest so that slot-word loads and output
-// stores coalesce over b.
-template <bool kSpr>
+// stores coalesce over b.  kTiled (B1-3d) writes element (n, b) of the
+// outputs at [b / tb][n][b % tb] of [bt, n_pad, tb] buffers instead of
+// [n][b] of [N, B]; rows >= N and samples >= B of a tile are not written.
+template <bool kSpr, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 score_entries_kernel(const uint8_t* __restrict__ st,
                      const uint8_t* __restrict__ stp,
@@ -150,7 +165,8 @@ score_entries_kernel(const uint8_t* __restrict__ st,
                      const int32_t* __restrict__ nc_base,
                      const uint32_t* __restrict__ slots,
                      long long N, int P, int pitch, int B, int K, int rows,
-                     bool vec, int32_t* __restrict__ score_t,
+                     bool vec, int tb, long long n_pad,
+                     int32_t* __restrict__ score_t,
                      int32_t* __restrict__ nc_t) {
   extern __shared__ uint4 smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(smem_raw);
@@ -165,7 +181,12 @@ score_entries_kernel(const uint8_t* __restrict__ st,
     int cs, ns;
     entry_sums<kSpr>(sm + (size_t)r * pitch, slots, b, B, K, cs, ns);
     const long long n = n0 + r;
-    const size_t o = (size_t)n * B + b;
+    size_t o;
+    if constexpr (kTiled) {
+      o = ((size_t)(b / tb) * (size_t)n_pad + (size_t)n) * tb + b % tb;
+    } else {
+      o = (size_t)n * B + b;
+    }
     score_t[o] = base[n] + cs;
     nc_t[o] = nc_base[n] + ns;
   }
@@ -252,21 +273,49 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-template <bool kSpr>
+// Makes `device` the current CUDA device for the lifetime of the guard and
+// restores the previous one: cudaFuncSetAttribute applies to the current
+// device, and a launch must go to the device that owns its stream.
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != device) {
+      err_ = cudaSetDevice(device);
+      switched_ = err_ == cudaSuccess;
+    }
+  }
+  ~DeviceGuard() {
+    if (switched_) cudaSetDevice(prev_);
+  }
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = 0;
+  bool switched_ = false;
+  cudaError_t err_ = cudaSuccess;
+};
+
+template <bool kSpr, bool kTiled>
 cudaError_t launch_score_entries(const void* st, const void* stp,
                                  const void* base, const void* nc_base,
                                  const void* slots, long long N, int P, int B,
-                                 int K, int rows, void* score_t, void* nc_t,
+                                 int K, int rows, int tb, long long n_pad,
+                                 void* score_t, void* nc_t, int device,
                                  cudaStream_t stream) {
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   const int pitch = pitch_of(P);
   const size_t smem = (size_t)rows * pitch;
-  cudaError_t err = set_smem(score_entries_kernel<kSpr>, smem);
+  cudaError_t err = set_smem(score_entries_kernel<kSpr, kTiled>, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (N + rows - 1) / rows;
-  score_entries_kernel<kSpr><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      (const uint8_t*)st, (const uint8_t*)stp, (const int32_t*)base,
-      (const int32_t*)nc_base, (const uint32_t*)slots, N, P, pitch, B, K, rows,
-      use_vec(st, stp, P), (int32_t*)score_t, (int32_t*)nc_t);
+  score_entries_kernel<kSpr, kTiled>
+      <<<(unsigned)blocks, kThreads, smem, stream>>>(
+          (const uint8_t*)st, (const uint8_t*)stp, (const int32_t*)base,
+          (const int32_t*)nc_base, (const uint32_t*)slots, N, P, pitch, B, K,
+          rows, use_vec(st, stp, P), tb, n_pad, (int32_t*)score_t,
+          (int32_t*)nc_t);
   return cudaGetLastError();
 }
 
@@ -274,28 +323,49 @@ cudaError_t launch_score_entries(const void* st, const void* stp,
 
 extern "C" {
 
-// Returns the launch's cudaError_t (0 on success); never synchronises.
-// spr != 0 selects B1-spr (the SPR `sub` term).
+// Every entry point returns the launch's cudaError_t (0 on success) and never
+// synchronises.  `device` is the ordinal of the device that holds the tensors
+// and owns `stream`; spr != 0 selects B1-spr (the SPR `sub` term).
 int usher_score_entries_T(const void* st, const void* stp, const void* base,
                           const void* nc_base, const void* slots, long long N,
                           int P, int B, int K, int rows, int spr,
-                          void* score_t, void* nc_t, void* stream) {
+                          void* score_t, void* nc_t, int device,
+                          void* stream) {
   if (N <= 0 || B <= 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(spr ? launch_score_entries<true>(st, stp, base, nc_base, slots,
-                                                N, P, B, K, rows, score_t,
-                                                nc_t, s)
-                   : launch_score_entries<false>(st, stp, base, nc_base,
-                                                 slots, N, P, B, K, rows,
-                                                 score_t, nc_t, s));
+  return (int)(spr ? launch_score_entries<true, false>(
+                         st, stp, base, nc_base, slots, N, P, B, K, rows, 0, 0,
+                         score_t, nc_t, device, s)
+                   : launch_score_entries<false, false>(
+                         st, stp, base, nc_base, slots, N, P, B, K, rows, 0, 0,
+                         score_t, nc_t, device, s));
+}
+
+// B1-3d: score3/nc3 are [ceil(B / tb), n_pad, tb] int32 with n_pad >= N.
+int usher_score_entries_3d(const void* st, const void* stp, const void* base,
+                           const void* nc_base, const void* slots, long long N,
+                           int P, int B, int K, int rows, int spr, int tb,
+                           long long n_pad, void* score3, void* nc3,
+                           int device, void* stream) {
+  if (N <= 0 || B <= 0) return (int)cudaSuccess;
+  if (tb <= 0 || n_pad < N) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(spr ? launch_score_entries<true, true>(
+                         st, stp, base, nc_base, slots, N, P, B, K, rows, tb,
+                         n_pad, score3, nc3, device, s)
+                   : launch_score_entries<false, true>(
+                         st, stp, base, nc_base, slots, N, P, B, K, rows, tb,
+                         n_pad, score3, nc3, device, s));
 }
 
 int usher_placement_partials(const void* st, const void* stp, const void* base,
                              const void* nc_base, const void* nodemeta,
                              const void* slots, long long N, int P, int B,
                              int K, int rows, void* pbest, void* pcnt, void* p1,
-                             void* p2, void* stream) {
+                             void* p2, int device, void* stream) {
   if (N <= 0 || B <= 0) return (int)cudaSuccess;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   const int pitch = pitch_of(P);
   const size_t smem = (size_t)rows * pitch;
   cudaError_t err = set_smem(placement_partials_kernel, smem);

@@ -31,9 +31,11 @@ _LL = ctypes.c_longlong
 # name -> argtypes of every C entry point in csrc/ (each returns cudaError_t)
 SIGNATURES = {
     "usher_score_entries_T":
-        [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    "usher_score_entries_3d":
+        [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _LL, _P, _P, _I, _P],
     "usher_placement_partials":
-        [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
 }
 
 

@@ -338,3 +338,12 @@ def pad_events(idx, b, val, n_pad: int):
         raise IndexError(f"event row outside 0..{n_pad}")
     return (idx, np.asarray(b, dtype=np.int32),
             np.asarray(val, dtype=np.int32))
+
+
+def _spr_sharded_fn(mesh, axis, n_pad: int, bl: int):
+    """The SPR destination search over a batch mesh (X7 split over source
+    nodes) waits for the matOptimize slice; the placement and scoring
+    shardings of a batch mesh live in core/bigmat.py."""
+    raise NotImplementedError(
+        "the SPR move search over a device mesh is not ported yet "
+        "(ROADMAP A7, X7)")

@@ -15,14 +15,22 @@ that read st/stp at the K entry columns only.  Hand-written CUDA kernels
   B1-spr ``score_entries_T(spr=True)``, reached through ``score_cols_T``:
                               B1 with the SPR base semantics, over the
                               pointer-doubled column states of a CSR BigMAT
+  B1-3d  ``score_entries_3d`` B1 / B1-spr with the outputs left in
+                              sample-tile-major tiles [bt, n_pad, tb]
   B2     ``placement_reduce`` B1 plus validity and the tie-broken argmin,
-                              through per-node-block partials merged here
+                              through per-node-block partials
+                              (``placement_partials``) merged here
+
+parallel/mesh.py runs B1 and the B2 partials once per shard of a device
+mesh (mesh B1), on the shard's own device and stream.
 
 Each has a plain PyTorch twin (``*_plain``) built from column gathers
 ``st[:, pos_chunk]``, chunked over the batch.  The wrappers run the kernel on
 CUDA tensors and the plain twin on CPU tensors, and never fall back from one
 to the other; each counts its kernel launches in ``<wrapper>.launches``
-(``score_entries_T.launches_spr`` counts the spr=True launches apart).
+(``score_entries_T.launches_spr`` counts the spr=True launches apart).  The
+kernels read raw pointers, so a wrapper raises on a CUDA tensor that is not
+contiguous or lies on another device than ``st``.
 """
 
 from __future__ import annotations
@@ -30,10 +38,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from usher_tpu.core.nuc import N as NUC_N
-
+from ..core.nuc import N as NUC_N
 from ._build import check, load_library
-from .placement import parent_states, reduce_best, valid_mask
+from .placement import BIG, parent_states, reduce_best, valid_mask
 
 CHUNK_ELEMS = 1 << 26   # elements of one [N, Bc, K] gathered block (plain)
 POS_BITS = 22           # position field of the kernels' slot word
@@ -191,9 +198,19 @@ def _check_state(st, stp, ref, base, nc_base, pos, gval, kmiss):
     if P >= 1 << POS_BITS:
         raise ValueError(f"P={P} exceeds the kernels' {POS_BITS}-bit "
                          "position field")
-    for t in (stp, ref, base, nc_base, pos, gval, kmiss):
+    for name, t in (("stp", stp), ("ref", ref), ("base", base),
+                    ("nc_base", nc_base), ("pos", pos), ("gval", gval),
+                    ("kmiss", kmiss)):
         if t.device != st.device:
-            raise ValueError("all inputs must lie on one device")
+            raise ValueError(f"{name} lies on {t.device}, st on {st.device}: "
+                             "all inputs must lie on one device")
+    if st.device.type == "cuda":
+        # the kernels index st/stp through raw pointers with row pitch P: a
+        # row slice of a wider tensor or a transposed view would be misread
+        for name, t in (("st", st), ("stp", stp)):
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous on a CUDA "
+                                 "device")
 
 
 def _slot_words(P, ref, pos, gval, kmiss):
@@ -216,6 +233,16 @@ def rows_per_block(P: int) -> int:
     return max(1, min(MAX_ROWS, SMEM_ROWS_BYTES // pitch))
 
 
+def _device_args(st):
+    """(device ordinal, stream handle) of st's device for a C launcher: the
+    launch goes to st's own device and its current stream, whichever device
+    is current in the calling thread."""
+    dev = st.device.index
+    if dev is None:
+        dev = torch.cuda.current_device()
+    return dev, torch.cuda.current_stream(st.device).cuda_stream
+
+
 def score_entries_T(st, stp, ref, base, nc_base, pos, gval, kmiss,
                     spr: bool = False):
     """B1 / B1-spr wrapper: the CUDA kernel for CUDA tensors, the plain twin
@@ -230,17 +257,15 @@ def score_entries_T(st, stp, ref, base, nc_base, pos, gval, kmiss,
     lib = load_library()
     N, P = st.shape
     B, K = pos.shape
-    st, stp = st.contiguous(), stp.contiguous()
     base = base.to(torch.int32).contiguous()
     nc_base = nc_base.to(torch.int32).contiguous()
     slots = _slot_words(P, ref, pos, gval, kmiss)
     score_t = torch.empty((N, B), dtype=torch.int32, device=st.device)
     nc_t = torch.empty((N, B), dtype=torch.int32, device=st.device)
-    stream = torch.cuda.current_stream(st.device).cuda_stream
     err = lib.usher_score_entries_T(
         st.data_ptr(), stp.data_ptr(), base.data_ptr(), nc_base.data_ptr(),
         slots.data_ptr(), N, P, B, K, rows_per_block(P), int(spr),
-        score_t.data_ptr(), nc_t.data_ptr(), stream)
+        score_t.data_ptr(), nc_t.data_ptr(), *_device_args(st))
     check(err, "usher_score_entries_T")
     score_entries_T.launches += 1
     if spr:
@@ -250,6 +275,86 @@ def score_entries_T(st, stp, ref, base, nc_base, pos, gval, kmiss,
 
 score_entries_T.launches = 0
 score_entries_T.launches_spr = 0
+
+
+# --- B1-3d: the same scores in sample-tile-major tiles ----------------------
+
+def tiles_from_T(mat_t, tb: int, n_pad: int):
+    """[N, B] -> [bt, n_pad, tb] tiles with tile[b // tb, n, b % tb] =
+    mat_t[n, b]; rows >= N and samples >= B are zero."""
+    N, B = mat_t.shape
+    bt = -(-B // tb)
+    out = torch.zeros((n_pad, bt * tb), dtype=mat_t.dtype,
+                      device=mat_t.device)
+    out[:N, :B] = mat_t
+    return out.view(n_pad, bt, tb).permute(1, 0, 2).contiguous()
+
+
+def tiles_to_T(tiles, N: int, B: int):
+    """The [N, B] matrix held by [bt, n_pad, tb] tiles (inverse of
+    ``tiles_from_T`` on the real rows and samples)."""
+    bt, n_pad, tb = tiles.shape
+    return tiles.permute(1, 0, 2).reshape(n_pad, bt * tb)[:N, :B].contiguous()
+
+
+def _tile_shape(N, B, tb, n_pad):
+    if tb < 1:
+        raise ValueError(f"tb={tb}: a tile holds at least one sample")
+    n_pad = N if n_pad is None else n_pad
+    if n_pad < N:
+        raise ValueError(f"n_pad={n_pad} is below N={N}")
+    bt = -(-B // tb)
+    return bt, n_pad, bt * tb
+
+
+def score_entries_3d_plain(st, stp, ref, base, nc_base, pos, gval, kmiss,
+                           tb: int, spr: bool = False, n_pad=None):
+    """Plain twin of B1-3d: ``score_entries_T_plain`` re-laid into tiles.
+    Same outputs as ``score_entries_3d``; here the unspecified rows and
+    samples of a tile are zero."""
+    N, B = st.shape[0], pos.shape[0]
+    _, n_pad, b_pad = _tile_shape(N, B, tb, n_pad)
+    score_t, nc_t = score_entries_T_plain(st, stp, ref, base, nc_base, pos,
+                                          gval, kmiss, spr=spr)
+    return (tiles_from_T(score_t, tb, n_pad), tiles_from_T(nc_t, tb, n_pad),
+            N, B, n_pad, b_pad)
+
+
+def score_entries_3d(st, stp, ref, base, nc_base, pos, gval, kmiss, tb: int,
+                     spr: bool = False, n_pad=None):
+    """B1-3d wrapper (counterpart of placement_pallas._score_entries_3d):
+    B1's scores, or B1-spr's when spr, left in sample-tile-major tiles so
+    that a consumer reducing over nodes reads one contiguous [n_pad, tb]
+    slab per sample tile.  tb is the samples per tile, n_pad (default N) the
+    rows of a tile.  Returns (score3, nc3 [bt, n_pad, tb] int32, N, B,
+    n_pad, b_pad) with score3[b // tb, n, b % tb] = score_T[n, b]; rows >= N
+    and samples >= B of a tile are unspecified.  The CUDA kernel for CUDA
+    tensors, the plain twin for CPU tensors."""
+    _check_state(st, stp, ref, base, nc_base, pos, gval, kmiss)
+    if st.device.type == "cpu":
+        return score_entries_3d_plain(st, stp, ref, base, nc_base, pos, gval,
+                                      kmiss, tb, spr=spr, n_pad=n_pad)
+    if st.device.type != "cuda":
+        raise ValueError(f"no B1-3d kernel for device {st.device}")
+    lib = load_library()
+    N, P = st.shape
+    B, K = pos.shape
+    bt, n_pad, b_pad = _tile_shape(N, B, tb, n_pad)
+    base = base.to(torch.int32).contiguous()
+    nc_base = nc_base.to(torch.int32).contiguous()
+    slots = _slot_words(P, ref, pos, gval, kmiss)
+    score3 = torch.empty((bt, n_pad, tb), dtype=torch.int32, device=st.device)
+    nc3 = torch.empty((bt, n_pad, tb), dtype=torch.int32, device=st.device)
+    err = lib.usher_score_entries_3d(
+        st.data_ptr(), stp.data_ptr(), base.data_ptr(), nc_base.data_ptr(),
+        slots.data_ptr(), N, P, B, K, rows_per_block(P), int(spr), tb, n_pad,
+        score3.data_ptr(), nc3.data_ptr(), *_device_args(st))
+    check(err, "usher_score_entries_3d")
+    score_entries_3d.launches += 1
+    return score3, nc3, N, B, n_pad, b_pad
+
+
+score_entries_3d.launches = 0
 
 
 def score_sparse_stp_T(st, stp, ref, pos, gval, kmiss):
@@ -310,46 +415,80 @@ def placement_reduce_plain(st, stp, ref, base, nc_base, node_num_mut, active,
     return reduce_best(score_t.T, valid, num_leaves, bfs_rank)
 
 
-def _merge_partials(pbest, pcnt, p1, p2, bfs_rank, N):
-    """Exact merge of the per-block partials [n_blocks, B]
-    (placement_pallas.py:557-570)."""
+def partials_plain(score_t, nc_t, node_num_mut, active, is_leaf,
+                   is_root_mask, num_leaves, bfs_rank):
+    """The tie-break partials of a block of node rows from its [n, B]
+    score/num_common matrices, as one row [4, 1, B] int32 of what the B2
+    kernel writes per block: min valid score, rows at it, max leaves among
+    them, max (rank * 2 | has_unique) among those."""
+    valid, hu = valid_mask(score_t.T, nc_t.T, node_num_mut, is_root_mask,
+                           is_leaf, active)
+    valid, hu = valid.T, hu.T                                  # [n, B]
+    B = score_t.shape[1]
+    if score_t.shape[0] == 0:
+        out = torch.full((4, 1, B), -1, dtype=torch.int32,
+                         device=score_t.device)
+        out[0] = BIG
+        out[1] = 0
+        return out
+    best = torch.where(valid, score_t, BIG).min(0).values
+    is_best = valid & (score_t == best[None, :])
+    cnt = is_best.sum(0, dtype=torch.int32)
+    q1 = torch.where(is_best, num_leaves[:, None], -1).max(0).values
+    is_best &= num_leaves[:, None] == q1[None, :]
+    rank2 = bfs_rank.to(torch.int32)[:, None] * 2 + hu.to(torch.int32)
+    q2 = torch.where(is_best, rank2, -1).max(0).values
+    return torch.stack([best, cnt, q1.to(torch.int32), q2])[:, None, :]
+
+
+def merge_partials(pbest, pcnt, p1, p2):
+    """Exact merge of tie-break partials [n_parts, B] over the parts
+    (node blocks of one kernel launch, or node shards of a device mesh;
+    placement_pallas.py:557-570): the min score, the count summed over the
+    parts that reach it, the max leaves among them, then the max BFS rank.
+    Returns (best_score, best_rank, num_best) [B] int32."""
     gbest = pbest.min(0).values
     m = pbest == gbest[None, :]
     num_best = torch.where(m, pcnt, 0).sum(0, dtype=torch.int32)
     g1 = torch.where(m, p1, -1).max(0).values
     g2 = torch.where(m & (p1 == g1[None, :]), p2, -1).max(0).values
-    rank = torch.clamp(g2 >> 1, min=0)
-    # winner row via the inverse rank permutation; inactive slots
-    # (bfs_rank -1) write a dump entry at N that is never read
+    return gbest, torch.clamp(g2 >> 1, min=0), num_best
+
+
+def row_of_rank(rank, bfs_rank, N):
+    """The node row holding each BFS rank of ``rank`` [B]."""
+    # the inverse rank permutation; inactive slots (bfs_rank -1) write a
+    # dump entry at N that is never read
     dest = torch.where(bfs_rank >= 0, bfs_rank, N).long()
-    row_of_rank = torch.zeros(N + 1, dtype=torch.int32, device=pbest.device)
-    row_of_rank[dest] = torch.arange(N, dtype=torch.int32,
-                                     device=pbest.device)
-    best_row = row_of_rank[torch.clamp(rank, max=N - 1).long()]
-    return gbest, best_row, num_best
+    table = torch.zeros(N + 1, dtype=torch.int32, device=rank.device)
+    table[dest] = torch.arange(N, dtype=torch.int32, device=rank.device)
+    return table[torch.clamp(rank, max=N - 1).long()]
 
 
-def placement_reduce(st, stp, ref, base, nc_base, node_num_mut, active,
-                     is_leaf, is_root_mask, num_leaves, bfs_rank, pos, gval,
-                     kmiss):
-    """B2 wrapper: the CUDA kernel plus the exact partial merge for CUDA
-    tensors, the plain twin for CPU tensors."""
+def placement_partials(st, stp, ref, base, nc_base, node_num_mut, active,
+                       is_leaf, is_root_mask, num_leaves, bfs_rank, pos, gval,
+                       kmiss):
+    """The B2 kernel alone: tie-break partials [4, n_parts, B] int32 (best,
+    count, leaves, rank * 2 | has_unique) of the node rows of st, for
+    ``merge_partials``.  bfs_rank holds the rows' GLOBAL ranks, so the
+    partials of several node shards merge into the global winner.  The
+    CUDA kernel (one part per node block) for CUDA tensors; for CPU
+    tensors one part from the plain B1 twin."""
     _check_state(st, stp, ref, base, nc_base, pos, gval, kmiss)
     for t in (node_num_mut, active, is_leaf, is_root_mask, num_leaves,
               bfs_rank):
         if t.shape != base.shape or t.device != st.device:
             raise ValueError("per-node inputs must be [N] on st's device")
     if st.device.type == "cpu":
-        return placement_reduce_plain(st, stp, ref, base, nc_base,
-                                      node_num_mut, active, is_leaf,
-                                      is_root_mask, num_leaves, bfs_rank,
-                                      pos, gval, kmiss)
+        score_t, nc_t = score_entries_T_plain(st, stp, ref, base, nc_base,
+                                              pos, gval, kmiss)
+        return partials_plain(score_t, nc_t, node_num_mut, active, is_leaf,
+                              is_root_mask, num_leaves, bfs_rank)
     if st.device.type != "cuda":
         raise ValueError(f"no B2 kernel for device {st.device}")
     lib = load_library()
     N, P = st.shape
     B, K = pos.shape
-    st, stp = st.contiguous(), stp.contiguous()
     base = base.to(torch.int32).contiguous()
     nc_base = nc_base.to(torch.int32).contiguous()
     flags = (active.to(torch.int32)
@@ -364,15 +503,34 @@ def placement_reduce(st, stp, ref, base, nc_base, node_num_mut, active,
     n_blocks = -(-N // rows)
     parts = torch.empty((4, n_blocks, B), dtype=torch.int32,
                         device=st.device)
-    stream = torch.cuda.current_stream(st.device).cuda_stream
     err = lib.usher_placement_partials(
         st.data_ptr(), stp.data_ptr(), base.data_ptr(), nc_base.data_ptr(),
         nodemeta.data_ptr(), slots.data_ptr(), N, P, B, K, rows,
-        *(part.data_ptr() for part in parts), stream)
+        *(part.data_ptr() for part in parts), *_device_args(st))
     check(err, "usher_placement_partials")
     placement_reduce.launches += 1
-    return _merge_partials(parts[0], parts[1], parts[2], parts[3],
-                           bfs_rank.to(torch.int32), N)
+    return parts
+
+
+def placement_reduce(st, stp, ref, base, nc_base, node_num_mut, active,
+                     is_leaf, is_root_mask, num_leaves, bfs_rank, pos, gval,
+                     kmiss):
+    """B2 wrapper: the CUDA kernel plus the exact partial merge for CUDA
+    tensors, the plain twin for CPU tensors.  ``placement_reduce.launches``
+    counts the kernel's launches, those made through
+    ``placement_partials`` included."""
+    if st.device.type == "cpu":
+        _check_state(st, stp, ref, base, nc_base, pos, gval, kmiss)
+        return placement_reduce_plain(st, stp, ref, base, nc_base,
+                                      node_num_mut, active, is_leaf,
+                                      is_root_mask, num_leaves, bfs_rank,
+                                      pos, gval, kmiss)
+    parts = placement_partials(st, stp, ref, base, nc_base, node_num_mut,
+                               active, is_leaf, is_root_mask, num_leaves,
+                               bfs_rank, pos, gval, kmiss)
+    best, rank, num_best = merge_partials(*parts)
+    return (best, row_of_rank(rank, bfs_rank.to(torch.int32), st.shape[0]),
+            num_best)
 
 
 placement_reduce.launches = 0

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from usher_tpu.core.tree import Mutation, Tree
+from ..core.tree import Mutation, Tree
 
 
 def _pick_state(scores: torch.Tensor, par_state: torch.Tensor) -> torch.Tensor:

@@ -22,12 +22,11 @@ import numpy as np
 
 import torch
 
-from usher_tpu.core.tree import Mutation, Tree
-from usher_tpu.utils.instrument import timeit
-
 from ..core.flat import collect_positions
+from ..core.tree import Mutation, Tree
 from ..ops.placement import placement_outputs
 from ..utils.device import apply_platform_env
+from ..utils.instrument import timeit
 from .driver import SampleResult
 
 
@@ -62,15 +61,19 @@ class BigPlacementEngine:
     def __init__(self, T: Tree, vcf=None, extra_mutations=None,
                  mesh=None, device=None):
         """device: torch device of the BigMAT's resident arrays (default:
-        from USHER_TPU_PLATFORM, utils/device.py).  mesh: sharding over
-        several devices is not ported yet and raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "BigMAT placement over a device mesh is not ported yet "
-                "(ROADMAP A11, multi-GPU)")
+        from USHER_TPU_PLATFORM, utils/device.py; under a mesh its lead
+        device).  mesh: optional parallel.mesh.Mesh, flattened to a 1-D
+        batch mesh: the sample axis of a scoring batch is split over its
+        devices and the CSR metadata replicated."""
+        if mesh is not None and len(mesh.axis_names) > 1:
+            mesh = mesh.flattened("batch")
+        self.mesh = mesh
         self.T = T
-        self.device = (torch.device(device) if device is not None
-                       else apply_platform_env())
+        if mesh is not None:
+            self.device = mesh.lead
+        else:
+            self.device = (torch.device(device) if device is not None
+                           else apply_platform_env())
         positions, ref, chrom = collect_positions(T, vcf)
         if extra_mutations:
             pos_ref = {int(p): int(r) for p, r in zip(positions, ref)}
@@ -102,6 +105,7 @@ class BigPlacementEngine:
             with timeit("placement:bigmat_build"):
                 self._big = BigMAT.from_tree(self.T, self.positions,
                                              self.ref, device=self.device)
+            self._big.mesh = self.mesh
             self._slot_of = {id(n): i
                              for i, n in enumerate(self._big._nodes)}
             self._dirty = False

@@ -5,9 +5,11 @@ collapse/condense of the input tree, optional sample sorting, the
 per-sample placement loop (each batch scored on the device against every
 node at once), tree surgery, and the output files (final-tree.nh,
 placement_stats.tsv, mutation-paths.txt, parsimony-scores.tsv, clades.txt,
-MAT .pb).  The host side is the JAX package's; the device side is this
-package's FlatMAT and scoring ops, or with --bigmat its CSR BigMAT and
-DFS-interval engine (placement/big_engine.py).
+MAT .pb).  The host side (tree, I/O, host oracle) is this package's own copy
+of the JAX package's; the device side is its FlatMAT and scoring ops, or
+with --bigmat its CSR BigMAT and DFS-interval engine
+(placement/big_engine.py), either of them over a device mesh when
+--mesh-devices asks for one (parallel/mesh.py).
 
 Deterministic semantics: the tie set is every VALID node at the minimum
 score, and the winner maximizes (subtree leaf count, BFS index)
@@ -24,16 +26,16 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from usher_tpu.core.tree import Mutation, MissingSample, Tree
-from usher_tpu.io.newick import write_newick
-from usher_tpu.io.pbio import save_mat_pb
-from usher_tpu.placement.mapper import score_placement
-from usher_tpu.utils.instrument import timeit
-
 from ..core.flat import FlatMAT, collect_positions
+from ..core.nuc import char_from_nuc_id
+from ..core.tree import Mutation, MissingSample, Tree
+from ..io.newick import write_newick
+from ..io.pbio import save_mat_pb
 from ..ops import placement as dev
 from ..ops import placement_sparse as ps
 from ..utils.device import apply_platform_env
+from ..utils.instrument import timeit
+from .mapper import score_placement
 
 
 def _err(*a):
@@ -45,8 +47,8 @@ class UsherOptions:
     dout_filename: str = ""
     outdir: str = "."
     batch_size: int = 64
-    # -1 = auto (one device), 0 = single-device, N>1 = shard over N devices
-    # (not ported yet: ROADMAP A11)
+    # -1 = auto (every visible card when there are several, else no mesh),
+    # 0 = single-device, N>1 = shard over N devices (parallel/mesh.py)
     mesh_devices: int = -1
     max_trees: int = 1
     max_uncertainty: int = 1_000_000
@@ -89,17 +91,27 @@ class PlacementEngine:
     plain [B, N, P] formula (ops.placement), "auto" = sparse on CUDA and
     dense on the CPU.  The two are bit-identical; the host oracle check in
     run_usher guards every applied placement either way.
+
+    mesh: optional parallel.mesh.Mesh with ("data", "model") axes: the node
+    axis is sharded over "model", sample batches over "data", and every
+    shard runs the same scorer on its own device (mesh B1 on the sparse
+    backend).  Results equal the single-device engine's.
     """
 
     def __init__(self, T: Tree, vcf=None, extra_mutations=None,
-                 backend: str = "auto", device=None):
+                 backend: str = "auto", device=None, mesh=None):
         """extra_mutations: iterable of Mutation whose positions must join
         the segregating-position set.  device: torch device of the flat MAT
-        (default: from USHER_TPU_PLATFORM, utils/device.py)."""
+        (default: from USHER_TPU_PLATFORM, utils/device.py; under a mesh
+        its lead device)."""
         if backend not in ("auto", "sparse", "dense"):
             raise ValueError(f"unknown backend {backend!r}")
-        self.device = (torch.device(device) if device is not None
-                       else apply_platform_env())
+        if mesh is not None:
+            self.device = mesh.lead
+        else:
+            self.device = (torch.device(device) if device is not None
+                           else apply_platform_env())
+        self.mesh = mesh
         self.backend = backend
         positions, ref, chrom = collect_positions(T, vcf)
         if extra_mutations:
@@ -111,7 +123,8 @@ class PlacementEngine:
             positions = np.array(sorted(pos_ref), dtype=np.int64)
             ref = np.array([pos_ref[p] for p in positions.tolist()],
                            dtype=np.uint8)
-        self.flat = FlatMAT(T, positions, ref, chrom, device=self.device)
+        self.flat = FlatMAT(T, positions, ref, chrom, device=self.device,
+                            mesh=mesh)
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -190,6 +203,8 @@ class PlacementEngine:
         flat = self.flat
         st_dev, parent_dev = flat.sync()
         meta = flat.order_arrays()
+        if self.mesh is not None:
+            return self._best_mesh(samples_mutations, meta)
         args = (st_dev, parent_dev, flat.root_slot, flat.ref_dev) + tuple(
             self._tensor(meta[k]) for k in ("active", "is_leaf",
                                             "is_root_mask", "num_leaves",
@@ -206,6 +221,84 @@ class PlacementEngine:
                 *args, self._tensor(g), self._tensor(E), self._tensor(miss))
         return best.cpu().numpy(), num_best.cpu().numpy()
 
+    def _pad_sparse(self, samples_mutations):
+        """Sparse slot arrays of the batch, padded to a multiple of the
+        mesh's data size with rows of padding slots (pos = P_pad)."""
+        flat = self.flat
+        pos, gval, kmiss = ps.sparsify(samples_mutations, flat.pos_index,
+                                       flat.P_pad)
+        pad = -len(samples_mutations) % self.mesh.shape["data"]
+        if pad:
+            K = pos.shape[1]
+            pos = np.concatenate(
+                [pos, np.full((pad, K), flat.P_pad, np.int32)], 0)
+            gval = np.concatenate([gval, np.zeros((pad, K), np.uint8)], 0)
+            kmiss = np.concatenate([kmiss, np.zeros((pad, K), bool)], 0)
+        return pos, gval, kmiss
+
+    def _pad_dense(self, samples_mutations):
+        """Dense encoding of the batch, padded to a multiple of the mesh's
+        data size with reference rows (no entries)."""
+        flat = self.flat
+        g, E, miss = flat.encode_samples(samples_mutations)
+        pad = -len(samples_mutations) % self.mesh.shape["data"]
+        if pad:
+            g = np.concatenate([g, np.tile(flat.ref, (pad, 1))], 0)
+            E = np.concatenate([E, np.zeros((pad, E.shape[1]), bool)], 0)
+            miss = np.concatenate(
+                [miss, np.zeros((pad, miss.shape[1]), bool)], 0)
+        return g, E, miss
+
+    def _best_mesh(self, samples_mutations, meta):
+        """best_placements over the mesh: per shard the B2 partials (sparse)
+        or the dense step's, merged exactly over the node shards."""
+        from ..parallel import mesh as pmesh
+        flat = self.flat
+        st, stp = flat.sync_mesh()
+        B = len(samples_mutations)
+        node = [pmesh.put_nodes(self.mesh, meta[k]) for k in (
+            "active", "is_leaf", "is_root_mask", "num_leaves", "bfs_rank")]
+        if self._resolve_backend() == "sparse":
+            batch = [pmesh.put_batch(self.mesh, x)
+                     for x in self._pad_sparse(samples_mutations)]
+            best, _, num_best = pmesh.sharded_placement_reduce(
+                self.mesh, st, stp, flat.ref_mesh, *node, *batch)
+        else:
+            active, is_leaf, is_root, num_leaves, bfs_rank = node
+            batch = [pmesh.put_batch(self.mesh, x)
+                     for x in self._pad_dense(samples_mutations)]
+            best, _, num_best = pmesh.sharded_placement_step(self.mesh)(
+                st, stp, flat.ref_mesh, active, num_leaves, bfs_rank,
+                is_leaf, is_root, *batch)
+        return best[:B].cpu().numpy(), num_best[:B].cpu().numpy()
+
+    def _score_mesh(self, samples_mutations, active):
+        """Sharded scoring over the (data, model) mesh: the sample batch is
+        padded to the data-axis size and split over "data"; st/stp live
+        split over "model" in the FlatMAT.  Identical math to the
+        single-device path: B1 per shard on the sparse backend (mesh B1),
+        the dense formula per shard otherwise."""
+        from ..parallel import mesh as pmesh
+        flat = self.flat
+        st, stp = flat.sync_mesh()
+        B = len(samples_mutations)
+        if self._resolve_backend() == "sparse":
+            batch = [pmesh.put_batch(self.mesh, x)
+                     for x in self._pad_sparse(samples_mutations)]
+            score_t, nc_t, nnm = pmesh.sharded_sparse_score_fn(self.mesh)(
+                st, stp, flat.ref_mesh, *batch)
+            return (pmesh.gather_blocks(score_t, node_axis=0).T[:B],
+                    pmesh.gather_blocks(nc_t, node_axis=0).T[:B],
+                    pmesh.gather_nodes(nnm))
+        batch = [pmesh.put_batch(self.mesh, x)
+                 for x in self._pad_dense(samples_mutations)]
+        score, nc, nnm = pmesh.sharded_score_fn(self.mesh)(
+            st, stp, flat.ref_mesh, pmesh.put_nodes(self.mesh, active),
+            *batch)
+        return (pmesh.gather_blocks(score, node_axis=1)[:B],
+                pmesh.gather_blocks(nc, node_axis=1)[:B],
+                pmesh.gather_nodes(nnm))
+
     def _resolve_backend(self) -> str:
         if self.backend != "auto":
             return self.backend
@@ -215,6 +308,8 @@ class PlacementEngine:
         """Raw (score [B,N], num_common [B,N], node_num_mut [N]) numpy arrays
         from the selected scorer."""
         flat = self.flat
+        if self.mesh is not None:
+            return self._score_mesh(samples_mutations, active)
         if self._resolve_backend() == "sparse":
             pos, gval, kmiss = ps.sparsify(samples_mutations, flat.pos_index,
                                            flat.P_pad)
@@ -276,6 +371,24 @@ class PlacementEngine:
             self.flat.add_node(sample_node)
 
 
+def _mesh_from_options(opts: UsherOptions, device):
+    """The (data, model) mesh that opts.mesh_devices asks for, or None: -1
+    takes every visible card when there is more than one, N > 1 makes N
+    shards (more shards than cards share the cards)."""
+    device = (torch.device(device) if device is not None
+              else apply_platform_env())
+    want = opts.mesh_devices
+    if want == -1:
+        nd = torch.cuda.device_count() if device.type == "cuda" else 1
+        want = nd if nd > 1 else 0
+    if want <= 1:
+        return None
+    from ..parallel.mesh import make_mesh
+    mesh = make_mesh(want, device=device)
+    _err(f"Sharding placement over a {mesh.shape} device mesh.")
+    return mesh
+
+
 def run_usher(T: Tree, missing_samples: list[MissingSample], opts: UsherOptions,
               vcf=None, device=None) -> int:
     """Place ``missing_samples`` on ``T`` and write the outputs (reference
@@ -330,17 +443,14 @@ def run_usher(T: Tree, missing_samples: list[MissingSample], opts: UsherOptions,
         if opts.reverse_sort:
             missing_samples.reverse()
 
-    if opts.mesh_devices > 1:
-        raise NotImplementedError(
-            "placement sharded over several devices is not ported yet "
-            "(ROADMAP A11, multi-GPU)")
+    mesh = _mesh_from_options(opts, device)
     if opts.use_bigmat:
         from .big_engine import BigPlacementEngine
         _err("Using the CSR BigMAT engine (pandemic-scale path).")
-        engine = BigPlacementEngine(T, vcf, device=device)
+        engine = BigPlacementEngine(T, vcf, device=device, mesh=mesh)
     else:
         with timeit("placement:flat_build"):
-            engine = PlacementEngine(T, vcf, device=device)
+            engine = PlacementEngine(T, vcf, device=device, mesh=mesh)
     flat = engine.flat
 
     if missing_samples:
@@ -636,7 +746,7 @@ def _write_outputs(T: Tree, missing_samples: list[MissingSample],
                     f.write("\t".join(cols) + "\n")
 
     if opts.print_subtrees_single > 1 and missing_samples:
-        from usher_tpu.tools.subtrees import write_single_subtree
+        from ..tools.subtrees import write_single_subtree
         _err(f"Computing the single subtree for added samples with "
              f"{opts.print_subtrees_single} random leaves.\n")
         T.uncondense_leaves()
@@ -646,7 +756,7 @@ def _write_outputs(T: Tree, missing_samples: list[MissingSample],
             retain_original_branch_len=opts.retain_original_branch_len)
 
     if opts.print_subtrees_size > 1 and missing_samples:
-        from usher_tpu.tools.subtrees import write_sample_subtrees
+        from ..tools.subtrees import write_sample_subtrees
         _err("Computing subtrees for added samples.\n")
         T.uncondense_leaves()
         write_sample_subtrees(
@@ -833,7 +943,7 @@ def run_usher_multi(T: Tree, missing_samples: list[MissingSample],
             write_mutation_paths(Tt, [s.name for s in missing_samples], path)
 
     if opts.print_subtrees_single > 1 and missing_samples:
-        from usher_tpu.tools.subtrees import write_single_subtree
+        from ..tools.subtrees import write_single_subtree
         for t_idx, Tt in enumerate(optimal_trees):
             Tt.uncondense_leaves()
             write_single_subtree(
@@ -842,7 +952,7 @@ def run_usher_multi(T: Tree, missing_samples: list[MissingSample],
                 use_tree_idx=(num_trees > 1),
                 retain_original_branch_len=opts.retain_original_branch_len)
     if opts.print_subtrees_size > 1 and missing_samples:
-        from usher_tpu.tools.subtrees import write_sample_subtrees
+        from ..tools.subtrees import write_sample_subtrees
         for t_idx, Tt in enumerate(optimal_trees):
             Tt.uncondense_leaves()
             write_sample_subtrees(
@@ -867,7 +977,6 @@ def run_usher_multi(T: Tree, missing_samples: list[MissingSample],
 
 
 def _nuc_char(nuc_id: int) -> str:
-    from usher_tpu.core.nuc import char_from_nuc_id
     return char_from_nuc_id(nuc_id)
 
 
