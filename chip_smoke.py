@@ -11,7 +11,12 @@ these phases and fails (non-zero exit) if any of them fails:
                    missing entries, padding slots, inactive slots and
                    forced ties, and again on multi-base path states, where
                    B1-spr's scores must differ from B1's; B1-3d's tiles,
-                   re-laid, must also equal B1's matrices
+                   re-laid, must also equal B1's matrices; the fused calls
+                   (row sums taken in the kernel) against row_reductions
+                   plus the plain twins; more blocks than row groups,
+                   batches of 1, 3 and 64 samples, 8 and 2,048 slots, a
+                   column count that is no multiple of 16, a fused B1 call
+                   without samples and B2 without rows
   kernel_headline  the same on a synthetic 100,000-node x 512-site MAT,
                    1,024 samples of 16 entries, with the median ms of 5 runs
   kernel_genome    the same at genome width: 100,000 nodes x 30,000 sites,
@@ -52,8 +57,13 @@ these phases and fails (non-zero exit) if any of them fails:
                    unsharded calls on 256 samples
 
 Kernel against plain comparisons are exact (tolerance 0: the arithmetic is
-integer).  The launch counters are zeroed right before each main path and
-read right after it: the dense path (fixture_e2e and the realistic CLI
+integer).  Every comparison covers the kernel with caller-given row sums and
+the fused form, whose score_T, nc_T, base, nc_base and node_num_mut (for B2
+the three [B] results) are held against row_reductions plus the plain twins.
+The launch counters, and the call counter of row_reductions, are zeroed
+right before each main path and read right after it; the dense and the mesh
+path must launch B1 21 and 36 times and B2 1 and 4 times and never call
+row_reductions: the dense path (fixture_e2e and the realistic CLI
 run, kernels B1 and B2), the mesh path (mesh_fixture and mesh_realistic,
 B1 and B2 per shard: mesh B1's launches are the B1 kernel's there) and
 the BigMAT path (bigmat_fixture,
@@ -63,7 +73,10 @@ none either), so its main-path count is 0 and only the comparisons launch
 it.  A kernel's bound is the larger of the bytes it must move (inputs read
 once, outputs written once) over the card's published memory rate and its
 integer operations over the card's int32 rate, both computed here from
-the shapes and slot counts of the run.  Earlier lines report the card, the
+the shapes and slot counts of the run; a fused call's bound adds the row
+sums' operations and their three [N] outputs.  One line gives the ms of
+parent_states (the stp = st[parent] gather that score_sparse_T makes every
+call) at the main-path shape.  Earlier lines report the card, the
 build, each phase and the kernels (one JSON object); the last line is
 {"ok": true, "device": {...}}.  Work files go to build/chip_smoke/.
 The script imports no jax and nothing of the JAX package usher_tpu.
@@ -100,13 +113,27 @@ GOLDEN_FILES = ("smoke_placement_stats.tsv", "smoke_final_tree.nh",
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 # integer operations of the scoring kernels per (node, sample, valid slot)
-# triple (the count in csrc/placement_sparse.cu) and, for B2, per
-# (node, sample) pair of the validity test and tie-break fold
-OPS_PER_TRIPLE = 20
+# triple, counted in the compiled loop (the source note of
+# csrc/placement_sparse.cu): 162 for the 16 triples of a quad of four slots
+# against four rows; with one row a stage (the wide shapes) the kernel
+# executes 61 a quad, so the bound below is a lower limit there too.  For B2
+# also per (node, sample) pair of the validity test and tie-break fold
+OPS_PER_TRIPLE = 162 / 16
 OPS_PER_PAIR_B2 = 12
-# and of the per-node row reductions per (node, site) cell: three compares,
-# a select and three running sums
-OPS_PER_CELL_REDUCTION = 7
+# and of the per-node row sums, counted from the function and not from the
+# kernel's instructions: a 16-cell word (four 32-bit words each of st, stp and
+# ref) is compared with 8 xor, 7 or and a test; where it differs, each 32-bit
+# word takes 21 more for the three byte-parallel masks (4 xor/and, 4 x 2 for
+# the non-zero bytes, 9 to combine them), and the 16-cell word 3 popc and 3
+# adds: 16 + 4 * 21 + 6.  Addressing, loads, the vote and the in-place pack of
+# the kernel are its design's and are not charged
+OPS_PER_EQUAL_WORD = 16
+OPS_PER_DIFFER_WORD = 16 + 4 * 21 + 6
+OPS_PER_CELL_REDUCTION = OPS_PER_DIFFER_WORD / 16
+# what the compiled sweep executes for the same two kinds of word (the source
+# note's count), reported beside the bound as sweep_executed_ms
+EXECUTED_PER_EQUAL_WORD = 58
+EXECUTED_PER_DIFFER_WORD = 116
 
 
 def bound(n_bytes, n_ops):
@@ -119,29 +146,61 @@ def bound(n_bytes, n_ops):
             "bytes_ms": bytes_ms, "ops_ms": ops_ms}
 
 
-def score_bounds(N, P, pos, n_blocks=None):
+def sweep_ops(st, stp, ref, executed=False):
+    """Operations of the row sums on these states: 16-cell words are
+    counted on the card, those in which some cell of st, stp and ref differs
+    apart from those in which all agree.  With `executed`, what the compiled
+    sweep spends on them instead of what the function needs."""
+    N, P = st.shape
+    words = -(-P // 16)
+    cols = P // 16 * 16
+    differ = N * (words - P // 16)          # a ragged last word always does
+    step = max(1, (1 << 28) // max(1, P))
+    for n0 in range(0, N, step):
+        s = st[n0:n0 + step, :cols]
+        d = (s != stp[n0:n0 + step, :cols]) | (s != ref[None, :cols])
+        differ += int(d.view(d.shape[0], -1, 16).any(-1).sum())
+    per = ((EXECUTED_PER_DIFFER_WORD, EXECUTED_PER_EQUAL_WORD) if executed
+           else (OPS_PER_DIFFER_WORD, OPS_PER_EQUAL_WORD))
+    return differ * per[0] + (N * words - differ) * per[1]
+
+
+def score_bounds(N, P, pos, sweep=None):
     """Bounds of B1 (also B1-spr, B1-3d and mesh B1, which move the same
     bytes and do the same work) and of B2 for st/stp [N, P] and the slot
-    array pos [B, K]: st and stp read once, base and nc_base, one slot word
-    per slot, and the outputs written once ([N, B] x 2 for B1; the four
-    [n_blocks, B] partials and three [B] results for B2, which also reads
-    16 bytes of node metadata a row).  Operations count the slots that
-    hold an entry in this run, not K."""
+    array pos [B, K], with caller-given row sums and fused.  Bytes: st and
+    stp read once, seven words per quad of four slots and one quad count
+    per sample; with caller-given sums base and nc_base, fused the reference
+    row; the outputs written once: [N, B] x 2 for B1 (fused also the three
+    [N] row sums), the three [B] results for B2, which also reads 16 bytes
+    of node metadata a row.  Operations count the slots that hold an entry
+    in this run, not K; a fused call adds the row sums' operations, `sweep`
+    (``sweep_ops`` of the states; without it every cell is charged as one
+    that differs)."""
     B, K = pos.shape
     valid = int(((pos >= 0) & (pos < P)).sum())
-    read = 2 * N * P + 8 * N + 4 * K * B
+    read = 2 * N * P + 4 * 7 * -(-K // 4) * B + 4 * B
     triples = N * valid * OPS_PER_TRIPLE
-    out = {"B1": bound(read + 8 * N * B, triples + 2 * N * B)}
-    if n_blocks is not None:
-        out["B2"] = bound(read + 16 * N + 16 * n_blocks * B + 12 * B,
-                          triples + N * B * OPS_PER_PAIR_B2)
-    return out
+    if sweep is None:
+        sweep = N * P * OPS_PER_CELL_REDUCTION
+    b1 = (read + 8 * N * B, triples + 2 * N * B)
+    b2 = (read + 16 * N + 12 * B, triples + N * B * OPS_PER_PAIR_B2)
+    return {"B1": bound(b1[0] + 8 * N, b1[1]),
+            "B2": bound(b2[0] + 8 * N, b2[1]),
+            "B1 fused": bound(b1[0] + P + 12 * N, b1[1] + sweep),
+            "B2 fused": bound(b2[0] + P, b2[1] + sweep)}
+
+
+def executed_sweep_ms(st, stp, ref):
+    """The compiled sweep's instructions on these states over the int32
+    rate: what the fused kernels spend where the bound charges sweep_ops."""
+    return sweep_ops(st, stp, ref, executed=True) / INT32_OPS_PER_S * 1e3
 
 
 def reductions_bound(N, P):
-    """Bound of the per-node row reductions (PyTorch code, no kernel of the
-    port) that a scoring wrapper computes before it launches: st and stp
-    read once, three [N] int32 vectors written."""
+    """Bound of the per-node row sums alone (row_reductions, the plain twin
+    of what the fused kernels fold in): st and stp read once, three [N]
+    int32 vectors written."""
     return bound(2 * N * P + 12 * N, N * P * OPS_PER_CELL_REDUCTION)
 
 
@@ -185,9 +244,13 @@ class Kernels:
     def __init__(self, ps, pmesh):
         self.ps = ps
         self.pmesh = pmesh
-        self.err = {"B1": 0, "B2": 0, "B1-spr": 0, "B1-3d": 0, "mesh B1": 0}
+        self.err = {"B1": 0, "B2": 0, "B1-spr": 0, "B1-3d": 0, "mesh B1": 0,
+                    "B1 fused": 0, "B2 fused": 0}
         self.ms = {}
         self.bounds = {}
+
+    def hold(self, name, got, want):
+        self.err[name] = max(self.err[name], max_abs_err(got, want))
 
     def compare_b1(self, b1, ambiguous=False):
         """B1 and B1-spr against their plain twins on one input.  With
@@ -198,8 +261,7 @@ class Kernels:
         scores = {}
         for name, spr in (("B1", False), ("B1-spr", True)):
             got = ps.score_entries_T(*b1, spr=spr)
-            self.err[name] = max(self.err[name], max_abs_err(
-                got, ps.score_entries_T_plain(*b1, spr=spr)))
+            self.hold(name, got, ps.score_entries_T_plain(*b1, spr=spr))
             scores[spr] = got[0]
             self.compare_3d(b1, spr, got)
             del got
@@ -226,38 +288,73 @@ class Kernels:
         N, B = got[2], got[3]
         relaid = [ps.tiles_to_T(t, N, B) for t in got[:2]]
         del got
-        err = max_abs_err(relaid, [ps.tiles_to_T(t, N, B) for t in want[:2]])
+        self.hold("B1-3d", relaid, [ps.tiles_to_T(t, N, B) for t in want[:2]])
         del want
-        err = max(err, max_abs_err(relaid, flat_out))
-        self.err["B1-3d"] = max(self.err["B1-3d"], err)
+        self.hold("B1-3d", relaid, flat_out)
+
+    def compare_fused(self, b1, b2):
+        """The fused calls against row_reductions plus the plain twins:
+        B1's two matrices and the three row sums it writes, the public
+        fused wrapper, and B2's three [B] results."""
+        ps = self.ps
+        st, stp, ref, base, nc_base, pos, gval, kmiss = b1
+        want = ps.score_entries_T_plain(*b1)
+        score_t, nc_t, sums = ps._score_entries_cuda(
+            st, stp, ref, None, None, pos, gval, kmiss, False)
+        self.hold("B1 fused", (score_t, nc_t, *sums),
+                  (*want, base, nc_base, b2[5]))
+        del score_t, nc_t
+        self.hold("B1 fused", ps.score_sparse_stp_T(st, stp, ref, pos, gval,
+                                                    kmiss), (*want, b2[5]))
+        del want
+        self.hold("B2 fused",
+                  ps.placement_reduce(st, stp, ref, None, None, None, *b2[6:]),
+                  ps.placement_reduce_plain(*b2))
 
     def compare(self, st, stp, ref, node, pos, gval, kmiss, ambiguous=False):
-        """B1, B1-spr and B2 against their plain twins on one input; node
-        is (active, is_leaf, is_root, num_leaves, bfs_rank)."""
+        """B1, B1-spr, B1-3d and B2 against their plain twins on one input,
+        with caller-given row sums and fused; node is (active, is_leaf,
+        is_root, num_leaves, bfs_rank)."""
         ps = self.ps
         base, nc_base, nnm = ps.row_reductions(st, stp, ref)
         b1 = (st, stp, ref, base, nc_base, pos, gval, kmiss)
         self.compare_b1(b1, ambiguous)
         b2 = (st, stp, ref, base, nc_base, nnm, *node, pos, gval, kmiss)
-        self.err["B2"] = max(self.err["B2"], max_abs_err(
-            ps.placement_reduce(*b2), ps.placement_reduce_plain(*b2)))
+        self.hold("B2", ps.placement_reduce(*b2),
+                  ps.placement_reduce_plain(*b2))
+        self.compare_fused(b1, b2)
         torch.cuda.synchronize()
         return b1, b2
+
+    @staticmethod
+    def fused_args(b1, b2):
+        """(arguments of score_sparse_stp_T, of the fused placement_reduce)
+        from the explicit ones."""
+        st, stp, ref, _, _, pos, gval, kmiss = b1
+        return ((st, stp, ref, pos, gval, kmiss),
+                (st, stp, ref, None, None, None, *b2[6:]))
 
     def time(self, phase, b1, b2):
         ps = self.ps
         tb = self.tile_width(b1)
+        f1, f2 = self.fused_args(b1, b2)
         t = {"B1": (median_ms(lambda: ps.score_entries_T(*b1)),
                     median_ms(lambda: ps.score_entries_T_plain(*b1))),
              "B1-3d": (median_ms(lambda: ps.score_entries_3d(*b1, tb)),
                        median_ms(lambda: ps.score_entries_3d_plain(*b1,
                                                                    tb))),
              "B2": (median_ms(lambda: ps.placement_reduce(*b2)),
-                    median_ms(lambda: ps.placement_reduce_plain(*b2)))}
+                    median_ms(lambda: ps.placement_reduce_plain(*b2))),
+             "B1 fused": (median_ms(lambda: ps.score_sparse_stp_T(*f1)),
+                          median_ms(
+                              lambda: ps.score_sparse_stp_T_plain(*f1))),
+             "B2 fused": (median_ms(lambda: ps.placement_reduce(*f2)),
+                          None)}
         self.ms[phase] = t
         N, P = b1[0].shape
-        self.bounds[phase] = score_bounds(
-            N, P, b1[5].cpu().numpy(), -(-N // ps.rows_per_block(P)))
+        self.bounds[phase] = score_bounds(N, P, b1[5].cpu().numpy(),
+                                          sweep_ops(*b1[:3]))
+        t["sweep_executed_ms"] = executed_sweep_ms(*b1[:3])
         return t
 
     def reset_counts(self):
@@ -265,15 +362,17 @@ class Kernels:
         self.ps.score_entries_T.launches_spr = 0
         self.ps.placement_reduce.launches = 0
         self.ps.score_entries_3d.launches = 0
+        self.ps.row_reductions.calls = 0
 
     def counts(self):
-        """Launches per kernel; B1 counts its spr=False launches only.
-        Mesh B1 launches the B1 kernel once per shard, so over a sharded
-        run its count is B1's."""
+        """Launches per kernel, and the calls of row_reductions; B1 counts
+        its spr=False launches only.  Mesh B1 launches the B1 kernel once
+        per shard, so over a sharded run its count is B1's."""
         f = self.ps.score_entries_T
         return {"B1": f.launches - f.launches_spr, "B1-spr": f.launches_spr,
                 "B2": self.ps.placement_reduce.launches,
-                "B1-3d": self.ps.score_entries_3d.launches}
+                "B1-3d": self.ps.score_entries_3d.launches,
+                "row_reductions": self.ps.row_reductions.calls}
 
 
 def ambiguous_states(st, parent, root_slot, seed):
@@ -385,7 +484,55 @@ def phase_kernel_small(kern, device):
             kern.compare(st_a, stp_a, flat.ref_dev, node, pos, gval, kmiss,
                          ambiguous=True)
             cases += 2
+        if seed % 3 == 2:
+            cases += kernel_small_shapes(kern, rng, flat, st, stp, node, ref)
     return {"cases": cases, "max_abs_err": dict(kern.err)}
+
+
+def kernel_small_shapes(kern, rng, flat, st, stp, node, ref):
+    """The launch-plan corners on one small MAT: more blocks than row
+    groups, batches of 1, 3 and 64 samples (1 to 32 lanes a sample), 8 and
+    2,048 slots, and a column count that is no multiple of 16 (the threads
+    copy the rows instead of the bulk copies)."""
+    ps = kern.ps
+    device = st.device
+    cases = 0
+    for n_samples, k_slots, cut in ((1, 8, 0), (1, 2048, 0), (3, 8, 0),
+                                    (3, 2048, 5), (64, 8, 5), (64, 2048, 0),
+                                    (64, 64, 11)):
+        samples = [random_sample(rng, ref, int(rng.integers(0, 12)))
+                   for _ in range(n_samples)]
+        pos, gval, kmiss = (torch.from_numpy(x).to(device) for x in
+                            ps.sparsify(samples, flat.pos_index, flat.P_pad,
+                                        k_slots))
+        # without the last `cut` columns; entries there become padding
+        P = flat.P_pad - cut
+        st_c, stp_c = (x[:, :P].contiguous() for x in (st, stp))
+        plan = ps.launch_plan(P, n_samples, pos.shape[1], True,
+                              st_c.data_ptr() % 16 == 0,
+                              limits=ps.device_limits(device.index or 0))
+        if plan.grid <= -(-st_c.shape[0] // plan.rows):
+            raise AssertionError(f"{plan}: expected more blocks than row "
+                                 f"groups for {st_c.shape[0]} rows")
+        if plan.vec != (cut == 0):
+            raise AssertionError(f"{plan}: P={P}")
+        kern.compare(st_c, stp_c, flat.ref_dev[:P].contiguous(), node, pos,
+                     gval, kmiss)
+        cases += 1
+    # a fused B1 call without samples still owes the row sums, and B2
+    # without rows one identity part per block: both from the kernels
+    ref_dev = flat.ref_dev
+    score_t, nc_t, sums = ps._score_entries_cuda(
+        st, stp, ref_dev, None, None, pos[:0], gval[:0], kmiss[:0], False)
+    none = torch.empty((st.shape[0], 0), dtype=torch.int32, device=device)
+    kern.hold("B1 fused", (score_t, nc_t, *sums),
+              (none, none, *ps.row_reductions(st, stp, ref_dev)))
+    parts = ps.placement_partials(st[:0], stp[:0], ref_dev, None, None, None,
+                                  *(x[:0] for x in node), pos, gval, kmiss)
+    want = torch.tensor([1 << 30, 0, -1, -1], dtype=torch.int32,
+                        device=device)[:, None, None].expand_as(parts)
+    kern.hold("B2 fused", tuple(parts), tuple(want))
+    return cases + 2
 
 
 # --- synthetic flat MATs (bench.py's recipe) -------------------------------
@@ -451,7 +598,13 @@ def phase_kernel_synth(kern, name, mat, n_samples, n_entries, seed, device):
             "B1_ms": t["B1"][0], "B1_plain_ms": t["B1"][1],
             "B1_3d_ms": t["B1-3d"][0], "B1_3d_plain_ms": t["B1-3d"][1],
             "B2_ms": t["B2"][0], "B2_plain_ms": t["B2"][1],
-            "B1_bound": bounds["B1"], "B2_bound": bounds["B2"]}
+            "B1_fused_ms": t["B1 fused"][0],
+            "B1_fused_plain_ms": t["B1 fused"][1],
+            "B2_fused_ms": t["B2 fused"][0],
+            "B1_bound": bounds["B1"], "B2_bound": bounds["B2"],
+            "B1_fused_bound": bounds["B1 fused"],
+            "B2_fused_bound": bounds["B2 fused"],
+            "sweep_executed_ms": t["sweep_executed_ms"]}
 
 
 # --- end to end through the CLI --------------------------------------------
@@ -612,10 +765,10 @@ def run_realistic_cli(pb, vcf, batch_size, *flags, tag=None):
     return time.perf_counter() - t0, stage_seconds(trace), out
 
 
-def check_realistic(kern, T, vcf, out_dir, n_samples, counts, device,
-                    batch_size):
+def check_realistic(kern, T, vcf, out_dir, n_samples, device, batch_size):
     from usher_tpu_torch.io.newick import parse_newick_string
     from usher_tpu_torch.io.vcf import read_vcf
+    from usher_tpu_torch.ops.placement import parent_states
     from usher_tpu_torch.placement.driver import PlacementEngine
     ps = kern.ps
     with open(os.path.join(out_dir, "placement_stats.tsv")) as f:
@@ -628,10 +781,6 @@ def check_realistic(kern, T, vcf, out_dir, n_samples, counts, device,
     if n_leaves_out != n_leaves_in + n_samples:
         raise AssertionError(f"final tree has {n_leaves_out} leaves, "
                              f"expected {n_leaves_in} + {n_samples}")
-    need_b1 = -(-n_samples // batch_size)
-    if counts["B1"] < need_b1 or counts["B2"] < 1:
-        raise AssertionError(f"launches {counts}: expected B1 >= {need_b1}"
-                             " and B2 >= 1")
 
     # the first batch through the kernel and through its plain twin
     missing, vcf_data = read_vcf(T, vcf, create_new_mat=False)
@@ -644,12 +793,12 @@ def check_realistic(kern, T, vcf, out_dir, n_samples, counts, device,
                  r.tied_has_unique) for r in results]
 
     got = summary(eng.score_samples(batch))
-    kernel_b1 = ps.score_entries_T
-    ps.score_entries_T = ps.score_entries_T_plain
+    fused_b1 = ps.score_sparse_stp_T
+    ps.score_sparse_stp_T = ps.score_sparse_stp_T_plain
     try:
         want = summary(eng.score_samples(batch))
     finally:
-        ps.score_entries_T = kernel_b1
+        ps.score_sparse_stp_T = fused_b1
     if got != want:
         raise AssertionError("first batch: kernel and plain SampleResults "
                              "differ")
@@ -662,24 +811,30 @@ def check_realistic(kern, T, vcf, out_dir, n_samples, counts, device,
     meta = flat.order_arrays()
     node = tuple(torch.from_numpy(meta[k]).to(device) for k in (
         "active", "is_leaf", "is_root_mask", "num_leaves", "bfs_rank"))
-    shapes = {}
+    N, P = (int(x) for x in st.shape)
+    shapes = {"parent_states_ms": median_ms(
+        lambda: parent_states(st, parent, flat.root_slot))}
+    sweep = sweep_ops(st, stp, flat.ref_dev)
+    shapes["sweep_executed_ms"] = executed_sweep_ms(st, stp, flat.ref_dev)
     for name, samples in (("B1", batch),
                           ("B2", [s.mutations for s in missing])):
         pos, gval, kmiss = (torch.from_numpy(x).to(device) for x in
                             ps.sparsify(samples, flat.pos_index, flat.P_pad))
         b1, b2 = kern.compare(st, stp, flat.ref_dev, node, pos, gval, kmiss)
-        fn, plain, args = ((ps.score_entries_T, ps.score_entries_T_plain, b1)
-                           if name == "B1" else
-                           (ps.placement_reduce, ps.placement_reduce_plain,
-                            b2))
-        N, P = (int(x) for x in st.shape)
+        f1, f2 = kern.fused_args(b1, b2)
+        fn, plain, args, fused = (
+            (ps.score_entries_T, ps.score_entries_T_plain, b1,
+             lambda: ps.score_sparse_stp_T(*f1)) if name == "B1" else
+            (ps.placement_reduce, ps.placement_reduce_plain, b2,
+             lambda: ps.placement_reduce(*f2)))
+        bounds = score_bounds(N, P, pos.cpu().numpy(), sweep)
         shapes[name] = {"N": N, "P": P,
                         "B": len(samples), "K": int(pos.shape[1]),
                         "ms": median_ms(lambda: fn(*args)),
                         "plain_ms": median_ms(lambda: plain(*args)),
-                        "bound": score_bounds(
-                            N, P, pos.cpu().numpy(),
-                            -(-N // ps.rows_per_block(P)))[name]}
+                        "fused_ms": median_ms(fused),
+                        "bound": bounds[name],
+                        "fused_bound": bounds[name + " fused"]}
     return {"stats_rows": len(rows), "leaves_added": n_leaves_out - n_leaves_in,
             "first_batch": f"{len(got)} SampleResults identical",
             "main_shapes": shapes}
@@ -722,7 +877,10 @@ def mesh_against_unsharded(kern, mesh, sh, node_sh, whole, node,
     del got
     base, nc_base, nnm = ps.row_reductions(st, stp, ref)
     b2 = (st, stp, ref, base, nc_base, nnm, *node, pos, gval, kmiss)
+    fused_b2 = (st, stp, ref, None, None, None, *node, pos, gval, kmiss)
     best, row, num_best = ps.placement_reduce(*b2)
+    kern.hold("B2 fused", ps.placement_reduce(*fused_b2),
+              (best, row, num_best))
     got2 = pmesh.sharded_placement_reduce(mesh, sh[0], sh[1], sh[2],
                                           *node_sh, *sh[3:])
     err2 = max_abs_err(got2, (best, node[4][row.long()], num_best))
@@ -738,6 +896,8 @@ def mesh_against_unsharded(kern, mesh, sh, node_sh, whole, node,
         "mesh_b2_ms": median_ms(lambda: pmesh.sharded_placement_reduce(
             mesh, sh[0], sh[1], sh[2], *node_sh, *sh[3:])),
         "unsharded_b2_ms": median_ms(lambda: ps.placement_reduce(*b2)),
+        "unsharded_b2_fused_ms": median_ms(
+            lambda: ps.placement_reduce(*fused_b2)),
     }
     return dict(t, launches_per_call=per_call,
                 max_abs_err={"mesh B1": err, "B2": err2}), b2
@@ -781,14 +941,15 @@ def phase_mesh_kernel(kern, mat, n_samples, n_entries, seed, device):
     })
     kern.ms["mesh_kernel"] = t
     kern.bounds["mesh_kernel"] = dict(
-        score_bounds(N, P, pos_h), reductions=reductions_bound(N, P))
+        score_bounds(N, P, pos_h, sweep_ops(*whole[:3])),
+        reductions=reductions_bound(N, P))
     shard_shape = [int(x) for x in (*s00[0].shape, s00[3].shape[0])]
     devices = sorted({str(d) for d in mesh.devices.reshape(-1).tolist()})
     del whole, sh, b1, b2, shard_b1, s00
     torch.cuda.empty_cache()
     return dict(t, N=N, P=P, B=n_samples, K=n_entries,
                 mesh=mesh.shape, devices=devices, shard_NPB=shard_shape,
-                mesh_b1_bound=kern.bounds["mesh_kernel"]["B1"],
+                mesh_b1_bound=kern.bounds["mesh_kernel"]["B1 fused"],
                 reductions_bound=kern.bounds["mesh_kernel"]["reductions"])
 
 
@@ -851,8 +1012,7 @@ def check_mesh_realistic(kern, pb, vcf, batch_size, device):
                for x in (st_sh, stp_sh))
     ref = flat.ref_mesh[0][0].to(mesh.lead)
     N, P = (int(x) for x in st.shape)
-    rpb = ps.rows_per_block(P)
-    n_blocks = sum(-(-int(t.shape[0]) // rpb) for t in st_sh[0])
+    sweep = sweep_ops(st, stp, ref)
     shapes = {}
     for name, samples in (("batch", missing[:batch_size]),
                           ("pre_pass", missing)):
@@ -862,12 +1022,13 @@ def check_mesh_realistic(kern, pb, vcf, batch_size, device):
         whole = (st, stp, ref,
                  *(torch.from_numpy(x).to(mesh.lead) for x in slots))
         t, _ = mesh_against_unsharded(kern, mesh, sh, node_sh, whole, node)
-        bounds = score_bounds(N, P, slots[0], n_blocks)
+        bounds = score_bounds(N, P, slots[0], sweep)
         shapes[name] = dict(
             t, N=N, P=P, B=len(samples), K=int(slots[0].shape[1]),
             shard_NPB=[int(x) for x in (*st_sh[0][0].shape,
                                         sh[3][0][0].shape[0])],
-            mesh_b1_bound=bounds["B1"], b2_bound=bounds["B2"])
+            mesh_b1_bound=bounds["B1 fused"],
+            b2_bound=bounds["B2 fused"])
         del sh, whole
     return shapes
 
@@ -891,9 +1052,9 @@ def phase_mesh_realistic(kern, pb, reference, n_samples, batch_size, device):
     if len(rows) != n_samples:
         raise AssertionError(f"placement_stats.tsv has {len(rows)} rows")
     need = -(-n_samples // batch_size) * MESH_SHARDS
-    if launches["B1"] < need or launches["B2"] < MESH_SHARDS:
+    if launches["B1"] != need or launches["B2"] != MESH_SHARDS:
         raise AssertionError(f"mesh launches {launches}: expected B1 "
-                             f">= {need} and B2 >= {MESH_SHARDS}")
+                             f"{need} and B2 {MESH_SHARDS}")
     shapes = check_mesh_realistic(kern, pb, vcf, batch_size, device)
     torch.cuda.empty_cache()
     return {"vs_unsharded": "byte-identical " + ", ".join(PLACE_FILES),
@@ -1260,7 +1421,7 @@ def main() -> int:
     # ----------------------------------------------------------------------
 
     def realistic():
-        res = check_realistic(kern, T, vcf, out_dir, 1024, counts, device, 64)
+        res = check_realistic(kern, T, vcf, out_dir, 1024, device, 64)
         return dict(res, cli_seconds=wall, launches=counts, setup=setup,
                     stage_seconds={k: round(v, 3) for k, v in stages.items()})
 
@@ -1294,8 +1455,17 @@ def main() -> int:
         if any(m == banned or m.startswith(banned + ".")
                for m in sys.modules):
             raise AssertionError(f"{banned} was imported")
-    if mesh_counts["B1"] < 1 or mesh_counts["B2"] < 1:
-        raise AssertionError(f"mesh path launches {mesh_counts}")
+    # the main paths make the launches they always made, all of them fused:
+    # the dense path 5 fixture + 16 realistic batches and one pre-pass, the
+    # mesh path 20 fixture + 16 realistic shard launches and 4 pre-pass ones
+    for what, got, want in (("dense", counts, {"B1": 21, "B2": 1}),
+                            ("mesh", mesh_counts, {"B1": 36, "B2": 4})):
+        if any(got[k] != v for k, v in want.items()) or got["row_reductions"]:
+            raise AssertionError(f"{what} path: launches {got}, expected "
+                                 f"{want} and no call of row_reductions")
+    main_shapes = results["realistic_e2e"]["main_shapes"]
+    log("parent_states at the main-path shape: "
+        f"{main_shapes['parent_states_ms']:.3f} ms")
     genome_ms = kern.ms["kernel_genome"]
     genome_bound = kern.bounds["kernel_genome"]
     mesh_ms = kern.ms["mesh_kernel"]
@@ -1310,15 +1480,26 @@ def main() -> int:
                     bound_by=bnd["bound_by"], library_ms=None,
                     bytes_ms=bnd["bytes_ms"], ops_ms=bnd["ops_ms"], **more)
 
+    def fused(name):
+        """fused_ms, fused_bound_ms and the main-path shape's numbers."""
+        main = main_shapes[name]
+        return dict(fused_ms=genome_ms[name + " fused"][0],
+                    fused_bound_ms=genome_bound[name + " fused"]["bound_ms"],
+                    fused_max_abs_err=kern.err[name + " fused"],
+                    main_path=dict(main, bound_ms=main["bound"]["bound_ms"],
+                                   fused_bound_ms=main["fused_bound"][
+                                       "bound_ms"]))
+
     kernels = [
         entry("B1 score_entries_T",
               "usher_tpu/ops/placement_pallas.py:176", counts["B1"],
-              kern.err["B1"], *genome_ms["B1"], genome_bound["B1"],
-              shape="kernel_genome"),
+              max(kern.err["B1"], kern.err["B1 fused"]), *genome_ms["B1"],
+              genome_bound["B1"], shape="kernel_genome", **fused("B1")),
         entry("B2 placement_reduce",
               "usher_tpu/ops/placement_pallas.py:119", counts["B2"],
-              kern.err["B2"], *genome_ms["B2"], genome_bound["B2"],
-              shape="kernel_genome", mesh_path_launches=mesh_counts["B2"]),
+              max(kern.err["B2"], kern.err["B2 fused"]), *genome_ms["B2"],
+              genome_bound["B2"], shape="kernel_genome",
+              mesh_path_launches=mesh_counts["B2"], **fused("B2")),
         entry("B1-spr score_cols_T",
               "usher_tpu/ops/placement_pallas.py:416", big_counts["B1-spr"],
               kern.err["B1-spr"], pandemic["b1_spr_ms"],
@@ -1327,11 +1508,10 @@ def main() -> int:
         entry("mesh B1 sharded_sparse_score_fn",
               "usher_tpu/parallel/mesh.py:112", mesh_counts["B1"],
               kern.err["mesh B1"], mesh_ms["mesh_b1_ms"],
-              mesh_ms["mesh_b1_plain_ms"], kern.bounds["mesh_kernel"]["B1"],
-              shape="mesh_kernel (2 x 2 shards; ms includes the row "
-                    "reductions, the bound is the kernel's alone)",
-              reductions_bound_ms=kern.bounds["mesh_kernel"]["reductions"][
-                  "bound_ms"],
+              mesh_ms["mesh_b1_plain_ms"],
+              kern.bounds["mesh_kernel"]["B1 fused"],
+              shape="mesh_kernel (2 x 2 shards, one fused launch a shard; "
+                    "the bound is the unsharded fused call's)",
               main_shapes=mesh_real["main_shapes"],
               wrapper="usher_tpu_torch/parallel/mesh.py"),
         entry("B1-3d score_entries_3d",

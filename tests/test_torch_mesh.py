@@ -240,6 +240,38 @@ def test_uneven_splits_match_unsharded(n, data):
     _same((b, _t(bfs_rank)[row.long()], nb), want_step)
 
 
+@pytest.mark.parametrize("n,data", MESHES)
+def test_shard_wrappers_take_their_own_row_sums(n, data):
+    """mesh B1 and the sharded B2 step get no reductions from outside: each
+    shard's call sums its own base, nc_base and node_num_mut (in the kernel
+    on CUDA, through row_reductions on CPU tensors), and the results equal
+    the unsharded calls with explicit sums, empty shards included."""
+    args = flat_inputs(6, N=5, P=64, B=3)         # N < model size for n = 8
+    st, stp, ref, active, num_leaves, bfs_rank, is_leaf, is_root, g, E, miss \
+        = args
+    pos, gval, kmiss = ps.sparsify_dense(g, E, miss)
+    mesh = pmesh.make_mesh(n, data, device="cpu")
+    assert not hasattr(pmesh, "_node_reductions")
+    base, nc_base, nnm = ps.row_reductions(_t(st), _t(stp), _t(ref))
+    want = ps.score_entries_T(_t(st), _t(stp), _t(ref), base, nc_base,
+                              _t(pos), _t(gval), _t(kmiss))
+    sh = pmesh.shard_sparse_inputs(mesh, st, stp, ref, pos, gval, kmiss)
+    for fn in (pmesh.sharded_sparse_score_fn(mesh),
+               lambda *a: pmesh.sharded_sparse_score_plain(mesh, *a)):
+        score_t, nc_t, nnm_sh = fn(*sh)
+        _same((pmesh.gather_blocks(score_t), pmesh.gather_blocks(nc_t),
+               pmesh.gather_nodes(nnm_sh)), (*want, nnm))
+    node = [pmesh.put_nodes(mesh, a) for a in (active, is_leaf, is_root,
+                                               num_leaves, bfs_rank)]
+    b, row, nb = ps.placement_reduce(
+        _t(st), _t(stp), _t(ref), base, nc_base, nnm, _t(active),
+        _t(is_leaf), _t(is_root), _t(num_leaves), _t(bfs_rank), _t(pos),
+        _t(gval), _t(kmiss))
+    _same(pmesh.sharded_placement_reduce(mesh, sh[0], sh[1], sh[2], *node,
+                                         *sh[3:]),
+          (b, _t(bfs_rank)[row.long()], nb))
+
+
 # --- the merge ----------------------------------------------------------------------
 
 def _parts(rows):

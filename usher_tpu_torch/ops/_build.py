@@ -29,13 +29,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # name -> argtypes of every C entry point in csrc/ (each returns cudaError_t)
+_IP = ctypes.POINTER(ctypes.c_int)
+# the launch plan of the scoring kernels: rows, stages, vec, lanes, grid
+_PLAN = [_I, _I, _I, _I, _I]
 SIGNATURES = {
+    "usher_launch_limits": [_I, _IP, _IP, _IP, _IP],
     "usher_score_entries_T":
-        [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, *_PLAN, _I, _P, _P, _P, _I,
+         _P],
     "usher_score_entries_3d":
-        [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _LL, _P, _P, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, *_PLAN, _I, _I, _LL, _P, _P,
+         _P, _I, _P],
     "usher_placement_partials":
-        [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, *_PLAN, _P, _P, _I, _P],
 }
 
 
@@ -52,9 +58,10 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(defines: tuple = ()) -> Path:
+    """Where the library for the current sources, built with the macros
+    `defines`, lives (built or not)."""
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *defines]).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -62,13 +69,16 @@ def library_path() -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; raises on failure."""
-    out = library_path()
+def load_library(defines: tuple = ()) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raises on failure.
+    `defines` are preprocessor macros of a variant build (USHER_PROFILE:
+    the phase clocks of tools/kernel_profile.py)."""
+    out = library_path(defines)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+               str(tmp),
                *[str(s) for s in _sources() if s.suffix == ".cu"]]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         out.with_suffix(".log").write_text(

@@ -7,33 +7,71 @@ no-entry position the (sample, node) term does not depend on the sample.  So
   score[n,b] = base[n]    + sum_k corr(n, b, pos[b,k])
   nc[n,b]    = nc_base[n] + sum_k corr_nc(n, b, pos[b,k])
 
-with per-node row reductions base, nc_base (torch ops here) and corrections
-that read st/stp at the K entry columns only.  Hand-written CUDA kernels
-(csrc/placement_sparse.cu) evaluate the corrections:
+with per-node row sums base, nc_base (and node_num_mut, the branch-mutation
+count) and corrections that read st/stp at the K entry columns only.
+Hand-written CUDA kernels (csrc/placement_sparse.cu) evaluate both:
 
-  B1     ``score_entries_T``  the [N, B] score and num_common matrices
+  B1     ``score_entries_T``  the [N, B] score and num_common matrices, with
+                              base/nc_base given by the caller; replaces
+                              placement_pallas._score_entries_T
+         ``score_sparse_stp_T``  the fused call of the main path: one B1
+                              launch that also sums base, nc_base and
+                              node_num_mut from the rows it stages
   B1-spr ``score_entries_T(spr=True)``, reached through ``score_cols_T``:
                               B1 with the SPR base semantics, over the
                               pointer-doubled column states of a CSR BigMAT
+                              (caller-given full-genome base/nc_base);
+                              replaces placement_pallas.score_cols_T
   B1-3d  ``score_entries_3d`` B1 / B1-spr with the outputs left in
-                              sample-tile-major tiles [bt, n_pad, tb]
+                              sample-tile-major tiles [bt, n_pad, tb];
+                              replaces placement_pallas._score_entries_3d
   B2     ``placement_reduce`` B1 plus validity and the tie-broken argmin,
-                              through per-node-block partials
-                              (``placement_partials``) merged here
+                              through one partial per kernel block
+                              (``placement_partials``) merged here; with
+                              ``base=None`` the row sums are taken in the
+                              kernel; replaces the kernel of
+                              placement_pallas.placement_step_sparse
 
-parallel/mesh.py runs B1 and the B2 partials once per shard of a device
-mesh (mesh B1), on the shard's own device and stream.
+parallel/mesh.py runs the fused B1 and the fused B2 partials once per shard
+of a device mesh (mesh B1), on the shard's own device and stream.
 
-Each has a plain PyTorch twin (``*_plain``) built from column gathers
-``st[:, pos_chunk]``, chunked over the batch.  The wrappers run the kernel on
-CUDA tensors and the plain twin on CPU tensors, and never fall back from one
-to the other; each counts its kernel launches in ``<wrapper>.launches``
-(``score_entries_T.launches_spr`` counts the spr=True launches apart).  The
-kernels read raw pointers, so a wrapper raises on a CUDA tensor that is not
-contiguous or lies on another device than ``st``.
+What bounds the kernels on an H100: reading st and stp once (2 bytes per node
+and column) at a wide position axis and a small batch, the integer work of
+the (node, sample, entry) triples at a narrow axis or a large batch.  The
+design (details and the ptxas report in the source note of the .cu file):
+one persistent block per SM walks row groups through a ring of shared-memory
+stages that one thread fills with asynchronous bulk copies, so loading
+overlaps scoring; lanes of a warp split a sample's K slots and fold their
+sums with shuffles, so a batch of 64 fills a block as a batch of 1,024 does;
+and while a stage is resident the block sweeps it against ``ref``, four cells
+per 32-bit word, for the three row sums, which therefore cost no second pass
+over device memory.  Four slots of a sample (a quad of the slot table) are
+scored at once with byte-parallel arithmetic.  ``launch_plan`` chooses rows
+per group, ring stages, lanes per sample and the grid from the shapes and
+the device's limits.  ptxas (sm_90a, CUDA 12.8, 1,024 threads a block, so at
+most 64 registers a thread): the B1 kernel 62 registers where a stage holds
+fewer than four rows and 64 where it holds more, no spills, in each of its
+spr and tiled instantiations; the B2 kernel 64 registers with 12 to 92 bytes
+spilt.
+
+Each kernel has a plain PyTorch twin (``*_plain``) built from column gathers
+``st[:, pos_chunk]``, chunked over the batch; ``row_reductions`` is the
+plain twin of the kernels' folded row sums and counts its calls in
+``row_reductions.calls`` (no CUDA main path reaches it).  The wrappers run
+the kernel on CUDA tensors and the plain twin on CPU tensors, and never fall
+back from one to the other; each counts its kernel launches in
+``<wrapper>.launches`` (``score_entries_T.launches`` counts every B1 launch,
+the fused ones included, and ``score_entries_T.launches_spr`` the spr=True
+ones apart).  The kernels read raw pointers, so a wrapper raises on a CUDA
+tensor that is not contiguous or lies on another device than ``st``, and on
+a position axis too wide for a block's shared memory.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,8 +82,10 @@ from .placement import BIG, parent_states, reduce_best, valid_mask
 
 CHUNK_ELEMS = 1 << 26   # elements of one [N, Bc, K] gathered block (plain)
 POS_BITS = 22           # position field of the kernels' slot word
-SMEM_ROWS_BYTES = 96 * 1024  # shared memory a block spends on staged rows
-MAX_ROWS = 32
+MAX_ROWS = 32           # node rows of one ring stage, at most
+MAX_STAGES = 3          # ring stages the plan asks for
+ROW_CHUNK = 4           # rows that share one decoded slot word
+SLOTS_PER_LANE = 8      # slots a lane walks before more lanes pay (measured)
 
 
 # --- host-side slot encoding ----------------------------------------------
@@ -118,7 +158,9 @@ def sparsify_dense(g, E, miss, k_slots=None):
 def row_reductions(st, stp, ref):
     """(base, nc_base, node_num_mut) [N] int32: the no-entry (g == ref) score
     and num_common of every node, and its branch-mutation count.  Chunked
-    over rows so the [rows, P] temporaries stay within ``CHUNK_ELEMS``."""
+    over rows so the [rows, P] temporaries stay within ``CHUNK_ELEMS``.  The
+    plain twin of the sums the fused kernels take from their staged rows."""
+    row_reductions.calls += 1
     N, P = st.shape
     out = torch.empty((3, N), dtype=torch.int32, device=st.device)
     r = ref[None, :]
@@ -132,6 +174,9 @@ def row_reductions(st, stp, ref):
         out[1, n0:n0 + rc] = (bm & matched0).sum(1, dtype=torch.int32)
         out[2, n0:n0 + rc] = bm.sum(1, dtype=torch.int32)
     return out[0], out[1], out[2]
+
+
+row_reductions.calls = 0
 
 
 def _slot_fields(P, ref, pos):
@@ -160,9 +205,10 @@ def score_entries_T_plain(st, stp, ref, base, nc_base, pos, gval, kmiss,
     bc = max(1, min(B, CHUNK_ELEMS // max(1, N * K)))
     for b0 in range(0, B, bc):
         sl = slice(b0, b0 + bc)
-        cols = pc[sl].reshape(-1)
-        s = st[:, cols].view(N, -1, K)                     # [N,Bc,K]
-        sp = stp[:, cols].view(N, -1, K)
+        cols = pc[sl]
+        n_b = cols.shape[0]
+        s = st[:, cols.reshape(-1)].view(N, n_b, K)        # [N,Bc,K]
+        sp = stp[:, cols.reshape(-1)].view(N, n_b, K)
         gv, rk = gval[sl][None], refk[sl][None]
         kv, km = kvalid[sl][None], kmiss[sl][None]
         bm = s != sp
@@ -191,16 +237,18 @@ def _check_state(st, stp, ref, base, nc_base, pos, gval, kmiss):
     if stp.shape != st.shape or ref.shape != (P,):
         raise ValueError(f"shapes st {tuple(st.shape)}, stp "
                          f"{tuple(stp.shape)}, ref {tuple(ref.shape)}")
-    if base.shape != (N,) or nc_base.shape != (N,):
+    if (base is None) != (nc_base is None):
+        raise ValueError("base and nc_base are given together or not at all")
+    given = () if base is None else (("base", base), ("nc_base", nc_base))
+    if any(t.shape != (N,) for _, t in given):
         raise ValueError("base/nc_base must be [N]")
     if pos.dim() != 2 or gval.shape != pos.shape or kmiss.shape != pos.shape:
         raise ValueError("pos/gval/kmiss must be [B,K] of one shape")
     if P >= 1 << POS_BITS:
         raise ValueError(f"P={P} exceeds the kernels' {POS_BITS}-bit "
                          "position field")
-    for name, t in (("stp", stp), ("ref", ref), ("base", base),
-                    ("nc_base", nc_base), ("pos", pos), ("gval", gval),
-                    ("kmiss", kmiss)):
+    for name, t in (("stp", stp), ("ref", ref), *given, ("pos", pos),
+                    ("gval", gval), ("kmiss", kmiss)):
         if t.device != st.device:
             raise ValueError(f"{name} lies on {t.device}, st on {st.device}: "
                              "all inputs must lie on one device")
@@ -214,23 +262,101 @@ def _check_state(st, stp, ref, base, nc_base, pos, gval, kmiss):
 
 
 def _slot_words(P, ref, pos, gval, kmiss):
-    """The kernels' packed slot words, k-major [K, B] int32 (layout in
-    csrc/placement_sparse.cu)."""
-    kvalid, pc, refk = _slot_fields(P, ref, pos)
-    w = (pc
-         | ((gval.long() & 0xF) << 22)
-         | (kmiss.long() << 26)
-         | (kvalid.long() << 27)
-         | ((refk.long() & 0xF) << 28))
-    # values fill 32 bits: reinterpret the low word as int32
-    w = torch.where(w >= 1 << 31, w - (1 << 32), w)
-    return w.to(torch.int32).t().contiguous()
+    """The kernels' slot table, int32 [Q, 7, B] (layout in
+    csrc/placement_sparse.cu): the K slots of a sample in Q = ceil(K / 4)
+    quads of four, each quad the four positions and three words that hold
+    one byte per slot (the sample's allele mask, the reference nibble, and
+    flags: bit 7 missing, bit 6 the slot holds an entry); and qend [B]
+    int32, one past each sample's last quad that holds an entry: the kernels
+    walk quads below it only.  Few tensor operations: a scoring call pays
+    their launches before its kernel starts."""
+    B, K = pos.shape
+    Q = -(-K // 4)
+    pos = pos.to(torch.int32)
+    kvalid = (pos >= 0) & (pos < P)
+    pc = pos * kvalid
+    fields = torch.stack([
+        gval & 0xF, ref[pc.long()] & 0xF,
+        torch.where(kmiss, 0xC0, 0x40).to(torch.uint8)]) * kvalid  # [3, B, K]
+    if Q * 4 != K:
+        pc = torch.nn.functional.pad(pc, (0, Q * 4 - K))
+        fields = torch.nn.functional.pad(fields, (0, Q * 4 - K))
+    # four uint8 in slot order are one little-endian int32
+    packed = fields.view(torch.int32)                            # [3, B, Q]
+    table = torch.cat([pc.view(B, Q, 4).permute(1, 2, 0),
+                       packed.permute(2, 0, 1)], dim=1)          # [Q, 7, B]
+    q1 = torch.arange(1, Q + 1, dtype=torch.int32, device=pos.device)
+    qend = ((packed[2] != 0) * q1).amax(1) if Q else \
+        torch.zeros(B, dtype=torch.int32, device=pos.device)
+    return table, qend.to(torch.int32)
 
 
-def rows_per_block(P: int) -> int:
-    """Node rows a kernel block stages in shared memory (P bytes each)."""
+class Limits(NamedTuple):
+    """What a launch plan needs to know of a device."""
+    sms: int          # streaming multiprocessors: the grid of a launch
+    threads: int      # threads of a kernel block
+    smem_max: int     # dynamic shared memory a block may have, bytes
+    smem_header: int  # bytes a block keeps beside its ring and ref row
+
+
+H100 = Limits(sms=132, threads=1024, smem_max=232448, smem_header=2048)
+
+
+class Plan(NamedTuple):
+    """How a launch cuts st/stp [N, P] and the batch (the kernels' source
+    note says what each choice does)."""
+    rows: int     # node rows of a row group (one ring stage)
+    stages: int   # ring stages
+    vec: int      # 1: asynchronous bulk copies fill the ring; 0: thread copies
+    lanes: int    # lanes of a warp that split one sample's K slots
+    grid: int     # persistent blocks
+
+
+def launch_plan(P: int, B: int, K: int, fused: bool, aligned: bool = True,
+                per_sample_state: bool = False,
+                limits: Limits = H100) -> Plan:
+    """The plan of a B1 launch (B2 with per_sample_state) over P columns and
+    B samples of K slots.  A stage holds ``rows`` rows of st and of stp, a
+    fused launch also the reference row; up to ``MAX_STAGES`` stages share what the
+    header leaves of the block's shared memory, a multiple of ``ROW_CHUNK``
+    rows each where that many fit.  Bulk copies need P % 16 == 0 and aligned
+    bases; otherwise one stage that the threads fill.  Lanes per sample: as
+    many as give every (row chunk, sample) item of a stage a thread group in
+    one pass, while a lane still walks ``SLOTS_PER_LANE`` slots (below that
+    the shuffles and the per-item bookkeeping cost more than the lanes
+    save); B2 keeps a sample's partial in one thread group for the whole
+    launch, so it takes the most lanes that still give every sample a
+    group."""
     pitch = (P + 15) // 16 * 16
-    return max(1, min(MAX_ROWS, SMEM_ROWS_BYTES // pitch))
+    pairs = (limits.smem_max - limits.smem_header
+             - (pitch if fused else 0)) // (2 * pitch)
+    if pairs < 1:
+        raise ValueError(f"P={P} is too wide for the scoring kernels: a row "
+                         f"of st and of stp{' and ref' if fused else ''} "
+                         f"must fit {limits.smem_max} bytes of shared memory")
+    vec = int(aligned and P % 16 == 0)
+    stages = min(MAX_STAGES, pairs) if vec else 1
+    per_stage = pairs // stages
+    rows = (min(MAX_ROWS, per_stage // ROW_CHUNK * ROW_CHUNK)
+            if per_stage >= ROW_CHUNK else per_stage)
+    # thread groups that have an item in one pass over a stage: B2 keeps a
+    # sample's partial in one group for the whole launch
+    items = B if per_sample_state else \
+        (rows // ROW_CHUNK if rows % ROW_CHUNK == 0 else rows) * B
+    lanes = 1
+    while (lanes < 32 and items * lanes * 2 <= limits.threads
+           and K >= SLOTS_PER_LANE * lanes * 2):
+        lanes *= 2
+    return Plan(rows, stages, vec, lanes, limits.sms)
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(device_index: int) -> Limits:
+    """The ``Limits`` of a CUDA device, from the kernel library."""
+    out = [ctypes.c_int() for _ in range(4)]
+    check(load_library().usher_launch_limits(
+        device_index, *(ctypes.byref(x) for x in out)), "usher_launch_limits")
+    return Limits(*(x.value for x in out))
 
 
 def _device_args(st):
@@ -243,34 +369,84 @@ def _device_args(st):
     return dev, torch.cuda.current_stream(st.device).cuda_stream
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+class _Launch(NamedTuple):
+    """The arguments every C launcher takes first (st, stp, ref, base,
+    nc_base, slot table, qend, N, P, B and the plan) and last (device,
+    stream), the plan, and the tensors behind the pointers, which must stay
+    alive until the launch call returns."""
+    head: tuple
+    tail: tuple
+    plan: Plan
+    keep: tuple
+
+
+def _launch_args(st, stp, ref, base, nc_base, pos, gval, kmiss,
+                 per_sample_state=False) -> _Launch:
+    """base None selects the fused form: the kernel is given ref and sums
+    base and nc_base itself; otherwise it gets no ref."""
+    N, P = st.shape
+    B, K = pos.shape
+    fused = base is None
+    tail = _device_args(st)
+    aligned = st.data_ptr() % 16 == 0 and stp.data_ptr() % 16 == 0
+    plan = launch_plan(P, B, K, fused, aligned, per_sample_state,
+                       device_limits(tail[0]))
+    table, qend = _slot_words(P, ref, pos, gval, kmiss)
+    if fused:
+        keep = (ref.contiguous(), None, None, table, qend)
+    else:
+        keep = (None, base.to(torch.int32).contiguous(),
+                nc_base.to(torch.int32).contiguous(), table, qend)
+    head = (st.data_ptr(), stp.data_ptr(), *(_ptr(t) for t in keep), N, P, B,
+            *plan)
+    return _Launch(head, tail, plan, keep)
+
+
+def _score_entries_cuda(st, stp, ref, base, nc_base, pos, gval, kmiss, spr):
+    """One B1 launch: (score_T, nc_T, sums), sums [3, N] int32 (base,
+    nc_base, node_num_mut) from the kernel when base is None, else None.
+    Without rows, or without samples when the sums are given, there is
+    nothing to write and nothing is launched; a fused call without samples
+    still launches for its sums."""
+    N, B = st.shape[0], pos.shape[0]
+    score_t = torch.empty((N, B), dtype=torch.int32, device=st.device)
+    nc_t = torch.empty((N, B), dtype=torch.int32, device=st.device)
+    sums = (torch.empty((3, N), dtype=torch.int32, device=st.device)
+            if base is None else None)
+    if N == 0 or (B == 0 and base is not None):
+        return score_t, nc_t, sums
+    lib = load_library()
+    launch = _launch_args(st, stp, ref, base, nc_base, pos, gval, kmiss)
+    err = lib.usher_score_entries_T(
+        *launch.head, int(spr), score_t.data_ptr(), nc_t.data_ptr(),
+        _ptr(sums), *launch.tail)
+    check(err, "usher_score_entries_T")
+    score_entries_T.launches += 1
+    if spr:
+        score_entries_T.launches_spr += 1
+    return score_t, nc_t, sums
+
+
 def score_entries_T(st, stp, ref, base, nc_base, pos, gval, kmiss,
                     spr: bool = False):
-    """B1 / B1-spr wrapper: the CUDA kernel for CUDA tensors, the plain twin
-    for CPU tensors.  Same signature and outputs as
-    ``score_entries_T_plain``."""
+    """B1 / B1-spr wrapper with caller-given base/nc_base: the CUDA kernel
+    for CUDA tensors, the plain twin for CPU tensors.  Same signature and
+    outputs as ``score_entries_T_plain``."""
+    if base is None or nc_base is None:
+        raise ValueError("score_entries_T takes base and nc_base; "
+                         "score_sparse_stp_T is the fused call")
     _check_state(st, stp, ref, base, nc_base, pos, gval, kmiss)
     if st.device.type == "cpu":
         return score_entries_T_plain(st, stp, ref, base, nc_base, pos, gval,
                                      kmiss, spr=spr)
     if st.device.type != "cuda":
         raise ValueError(f"no B1 kernel for device {st.device}")
-    lib = load_library()
-    N, P = st.shape
-    B, K = pos.shape
-    base = base.to(torch.int32).contiguous()
-    nc_base = nc_base.to(torch.int32).contiguous()
-    slots = _slot_words(P, ref, pos, gval, kmiss)
-    score_t = torch.empty((N, B), dtype=torch.int32, device=st.device)
-    nc_t = torch.empty((N, B), dtype=torch.int32, device=st.device)
-    err = lib.usher_score_entries_T(
-        st.data_ptr(), stp.data_ptr(), base.data_ptr(), nc_base.data_ptr(),
-        slots.data_ptr(), N, P, B, K, rows_per_block(P), int(spr),
-        score_t.data_ptr(), nc_t.data_ptr(), *_device_args(st))
-    check(err, "usher_score_entries_T")
-    score_entries_T.launches += 1
-    if spr:
-        score_entries_T.launches_spr += 1
-    return score_t, nc_t
+    return _score_entries_cuda(st, stp, ref, base, nc_base, pos, gval, kmiss,
+                               spr)[:2]
 
 
 score_entries_T.launches = 0
@@ -330,6 +506,8 @@ def score_entries_3d(st, stp, ref, base, nc_base, pos, gval, kmiss, tb: int,
     n_pad, b_pad) with score3[b // tb, n, b % tb] = score_T[n, b]; rows >= N
     and samples >= B of a tile are unspecified.  The CUDA kernel for CUDA
     tensors, the plain twin for CPU tensors."""
+    if base is None or nc_base is None:
+        raise ValueError("score_entries_3d takes base and nc_base")
     _check_state(st, stp, ref, base, nc_base, pos, gval, kmiss)
     if st.device.type == "cpu":
         return score_entries_3d_plain(st, stp, ref, base, nc_base, pos, gval,
@@ -337,18 +515,14 @@ def score_entries_3d(st, stp, ref, base, nc_base, pos, gval, kmiss, tb: int,
     if st.device.type != "cuda":
         raise ValueError(f"no B1-3d kernel for device {st.device}")
     lib = load_library()
-    N, P = st.shape
-    B, K = pos.shape
+    N, B = st.shape[0], pos.shape[0]
     bt, n_pad, b_pad = _tile_shape(N, B, tb, n_pad)
-    base = base.to(torch.int32).contiguous()
-    nc_base = nc_base.to(torch.int32).contiguous()
-    slots = _slot_words(P, ref, pos, gval, kmiss)
+    launch = _launch_args(st, stp, ref, base, nc_base, pos, gval, kmiss)
     score3 = torch.empty((bt, n_pad, tb), dtype=torch.int32, device=st.device)
     nc3 = torch.empty((bt, n_pad, tb), dtype=torch.int32, device=st.device)
     err = lib.usher_score_entries_3d(
-        st.data_ptr(), stp.data_ptr(), base.data_ptr(), nc_base.data_ptr(),
-        slots.data_ptr(), N, P, B, K, rows_per_block(P), int(spr), tb, n_pad,
-        score3.data_ptr(), nc3.data_ptr(), *_device_args(st))
+        *launch.head, int(spr), tb, n_pad, score3.data_ptr(), nc3.data_ptr(),
+        None, *launch.tail)
     check(err, "usher_score_entries_3d")
     score_entries_3d.launches += 1
     return score3, nc3, N, B, n_pad, b_pad
@@ -357,14 +531,29 @@ def score_entries_3d(st, stp, ref, base, nc_base, pos, gval, kmiss, tb: int,
 score_entries_3d.launches = 0
 
 
+def score_sparse_stp_T_plain(st, stp, ref, pos, gval, kmiss):
+    """Plain twin of the fused B1 call: ``row_reductions``, then B1's plain
+    twin.  Same outputs as ``score_sparse_stp_T``."""
+    base, nc_base, node_num_mut = row_reductions(st, stp, ref)
+    score_t, nc_t = score_entries_T_plain(st, stp, ref, base, nc_base, pos,
+                                          gval, kmiss)
+    return score_t, nc_t, node_num_mut
+
+
 def score_sparse_stp_T(st, stp, ref, pos, gval, kmiss):
     """Node-major sparse scoring given the parent states.  Returns
     (score_T [N,B], num_common_T [N,B], node_num_mut [N]) int32: the dense
-    score_batch outputs transposed, without inactive-slot masking."""
-    base, nc_base, node_num_mut = row_reductions(st, stp, ref)
-    score_t, nc_t = score_entries_T(st, stp, ref, base, nc_base, pos, gval,
-                                    kmiss)
-    return score_t, nc_t, node_num_mut
+    score_batch outputs transposed, without inactive-slot masking.  On CUDA
+    tensors one fused B1 launch, which sums base, nc_base and node_num_mut
+    from the rows it stages; on CPU tensors the plain twin."""
+    _check_state(st, stp, ref, None, None, pos, gval, kmiss)
+    if st.device.type == "cpu":
+        return score_sparse_stp_T_plain(st, stp, ref, pos, gval, kmiss)
+    if st.device.type != "cuda":
+        raise ValueError(f"no B1 kernel for device {st.device}")
+    score_t, nc_t, sums = _score_entries_cuda(st, stp, ref, None, None, pos,
+                                              gval, kmiss, False)
+    return score_t, nc_t, sums[2]
 
 
 def score_sparse_T(st, parent, root_slot, ref, pos, gval, kmiss):
@@ -471,42 +660,48 @@ def placement_partials(st, stp, ref, base, nc_base, node_num_mut, active,
     """The B2 kernel alone: tie-break partials [4, n_parts, B] int32 (best,
     count, leaves, rank * 2 | has_unique) of the node rows of st, for
     ``merge_partials``.  bfs_rank holds the rows' GLOBAL ranks, so the
-    partials of several node shards merge into the global winner.  The
-    CUDA kernel (one part per node block) for CUDA tensors; for CPU
-    tensors one part from the plain B1 twin."""
+    partials of several node shards merge into the global winner.  base,
+    nc_base and node_num_mut are given together, or all None: then the CUDA
+    kernel sums them from the rows it stages (``row_reductions`` for CPU
+    tensors).  The CUDA kernel writes one part per block of its grid (the
+    identity of the merge from a block without rows, so also when N is 0);
+    for CPU tensors one part from the plain B1 twin."""
+    if not ((base is None) == (nc_base is None) == (node_num_mut is None)):
+        raise ValueError("base, nc_base and node_num_mut are given together "
+                         "or not at all")
     _check_state(st, stp, ref, base, nc_base, pos, gval, kmiss)
+    N = st.shape[0]
     for t in (node_num_mut, active, is_leaf, is_root_mask, num_leaves,
               bfs_rank):
-        if t.shape != base.shape or t.device != st.device:
+        if t is not None and (t.shape != (N,) or t.device != st.device):
             raise ValueError("per-node inputs must be [N] on st's device")
     if st.device.type == "cpu":
+        if base is None:
+            base, nc_base, node_num_mut = row_reductions(st, stp, ref)
         score_t, nc_t = score_entries_T_plain(st, stp, ref, base, nc_base,
                                               pos, gval, kmiss)
         return partials_plain(score_t, nc_t, node_num_mut, active, is_leaf,
                               is_root_mask, num_leaves, bfs_rank)
     if st.device.type != "cuda":
         raise ValueError(f"no B2 kernel for device {st.device}")
+    B = pos.shape[0]
+    if B == 0:
+        return torch.empty((4, 1, 0), dtype=torch.int32, device=st.device)
     lib = load_library()
-    N, P = st.shape
-    B, K = pos.shape
-    base = base.to(torch.int32).contiguous()
-    nc_base = nc_base.to(torch.int32).contiguous()
     flags = (active.to(torch.int32)
              | (is_leaf.to(torch.int32) << 1)
              | (is_root_mask.to(torch.int32) << 2))
     nodemeta = torch.stack([num_leaves.to(torch.int32),
                             bfs_rank.to(torch.int32),
-                            node_num_mut.to(torch.int32), flags],
+                            flags.new_zeros(N) if node_num_mut is None
+                            else node_num_mut.to(torch.int32), flags],
                            dim=1).contiguous()
-    slots = _slot_words(P, ref, pos, gval, kmiss)
-    rows = rows_per_block(P)
-    n_blocks = -(-N // rows)
-    parts = torch.empty((4, n_blocks, B), dtype=torch.int32,
+    launch = _launch_args(st, stp, ref, base, nc_base, pos, gval, kmiss,
+                          per_sample_state=True)
+    parts = torch.empty((4, launch.plan.grid, B), dtype=torch.int32,
                         device=st.device)
     err = lib.usher_placement_partials(
-        st.data_ptr(), stp.data_ptr(), base.data_ptr(), nc_base.data_ptr(),
-        nodemeta.data_ptr(), slots.data_ptr(), N, P, B, K, rows,
-        *(part.data_ptr() for part in parts), *_device_args(st))
+        *launch.head, nodemeta.data_ptr(), parts.data_ptr(), *launch.tail)
     check(err, "usher_placement_partials")
     placement_reduce.launches += 1
     return parts
@@ -516,11 +711,14 @@ def placement_reduce(st, stp, ref, base, nc_base, node_num_mut, active,
                      is_leaf, is_root_mask, num_leaves, bfs_rank, pos, gval,
                      kmiss):
     """B2 wrapper: the CUDA kernel plus the exact partial merge for CUDA
-    tensors, the plain twin for CPU tensors.  ``placement_reduce.launches``
-    counts the kernel's launches, those made through
-    ``placement_partials`` included."""
+    tensors, the plain twin for CPU tensors.  base, nc_base and
+    node_num_mut all None: the fused form, as in ``placement_partials``.
+    ``placement_reduce.launches`` counts the kernel's launches, those made
+    through ``placement_partials`` included."""
     if st.device.type == "cpu":
         _check_state(st, stp, ref, base, nc_base, pos, gval, kmiss)
+        if base is None:
+            base, nc_base, node_num_mut = row_reductions(st, stp, ref)
         return placement_reduce_plain(st, stp, ref, base, nc_base,
                                       node_num_mut, active, is_leaf,
                                       is_root_mask, num_leaves, bfs_rank,
@@ -539,12 +737,11 @@ placement_reduce.launches = 0
 def placement_step_sparse(st, parent, root_slot, ref, active, is_leaf,
                           is_root_mask, num_leaves, bfs_rank, pos, gval,
                           kmiss):
-    """Sparse counterpart of ops.placement.placement_step: scoring,
-    validity and the tie-broken argmin with the [N, B] matrices never
-    written (through B2 on CUDA).  Returns (best_score, best_row, num_best)
-    [B] int32."""
+    """Sparse counterpart of ops.placement.placement_step: the row sums,
+    scoring, validity and the tie-broken argmin with the [N, B] matrices
+    never written (one fused B2 launch on CUDA).  Returns (best_score,
+    best_row, num_best) [B] int32."""
     stp = parent_states(st, parent, root_slot)
-    base, nc_base, node_num_mut = row_reductions(st, stp, ref)
-    return placement_reduce(st, stp, ref, base, nc_base, node_num_mut,
-                            active, is_leaf, is_root_mask, num_leaves,
-                            bfs_rank, pos, gval, kmiss)
+    return placement_reduce(st, stp, ref, None, None, None, active, is_leaf,
+                            is_root_mask, num_leaves, bfs_rank, pos, gval,
+                            kmiss)

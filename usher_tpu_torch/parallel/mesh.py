@@ -27,10 +27,11 @@ Mesh axes:
   data   -- sample batch
   model  -- tree node slots
 
-mesh B1: ``sharded_sparse_score_fn`` runs the B1 CUDA kernel
-(ops/placement_sparse.score_entries_T) once per shard, where the JAX
-package ran its Pallas kernel under a shard_map; ``sharded_placement_reduce``
-does the same with the B2 partials kernel.  ``sharded_sparse_score_plain``
+mesh B1: ``sharded_sparse_score_fn`` makes one fused B1 launch
+(ops/placement_sparse.score_sparse_stp_T: scores and the per-node row sums
+from one pass over the shard's rows) per shard, where the JAX package ran
+its Pallas kernel under a shard_map; ``sharded_placement_reduce`` does the
+same with the fused B2 partials kernel.  ``sharded_sparse_score_plain``
 is the plain PyTorch twin.
 """
 
@@ -318,38 +319,21 @@ def sharded_score_fn(mesh: Mesh):
 
 # --- mesh B1 and the sharded B2 -------------------------------------------------
 
-def _node_reductions(mesh: Mesh, st, stp, ref):
-    """row_reductions of every node shard, once per distinct shard tensor
-    (repeats along "data" on one device share it), on the current streams."""
-    cache = {}
-    out = {}
-    for d, m in mesh.indices():
-        key = id(st[d][m])
-        if key not in cache:
-            cache[key] = ps.row_reductions(st[d][m], stp[d][m], ref[d][m])
-        out[d, m] = cache[key]
-    return out
-
-
 def _sparse_blocks(mesh: Mesh, st, stp, ref, pos, gval, kmiss, score_fn):
+    """score_fn(st, stp, ref, pos, gval, kmiss) -> (score_T, nc_T,
+    node_num_mut) on every shard; the two matrices as x[d][m] blocks and
+    node_num_mut node-sharded."""
     data, model = mesh.devices.shape
-    red = _node_reductions(mesh, st, stp, ref)
 
     def one(idx):
+        # a shard with rows and no sample still owes its node_num_mut, so
+        # score_fn runs on every shard, whatever its size
         d, m = idx
-        s = st[d][m]
-        n, b = s.shape[0], pos[d][m].shape[0]
-        if n == 0 or b == 0:
-            z = _zeros(n, b, s.device)
-            return z, z.clone()
-        base, nc_base, _ = red[idx]
-        return score_fn(s, stp[d][m], ref[d][m], base, nc_base, pos[d][m],
+        return score_fn(st[d][m], stp[d][m], ref[d][m], pos[d][m],
                         gval[d][m], kmiss[d][m])
     res = for_each_shard(mesh, one)
-    blocks = tuple([[res[d, m][k] for m in range(model)]
-                    for d in range(data)] for k in range(2))
-    nnm = [[red[d, m][2] for m in range(model)] for d in range(data)]
-    return blocks[0], blocks[1], nnm
+    return tuple([[res[d, m][k] for m in range(model)]
+                  for d in range(data)] for k in range(3))
 
 
 def sharded_sparse_score_fn(mesh: Mesh):
@@ -357,22 +341,23 @@ def sharded_sparse_score_fn(mesh: Mesh):
     ref, pos, gval, kmiss) on sharded inputs (``shard_sparse_inputs``) ->
     (score_T, num_common_T) as x[d][m] blocks [N_m, B_d] int32 and
     node_num_mut node-sharded [N_m]: ops/placement_sparse.score_sparse_stp_T
-    per shard, so every shard runs the B1 CUDA kernel on its own device and
-    stream (the plain twin on CPU tensors).  Any slot count K runs, so the
-    JAX function's k_slots argument is gone.  Its kernel launches are
-    counted where they are made, in ``ps.score_entries_T.launches``."""
+    per shard, so every shard makes one fused B1 launch on its own device
+    and stream (the plain twin on CPU tensors), which also sums the shard's
+    base, nc_base and node_num_mut.  Any slot count K runs, so the JAX
+    function's k_slots argument is gone.  Its kernel launches are counted
+    where they are made, in ``ps.score_entries_T.launches``."""
     def fn(st, stp, ref, pos, gval, kmiss):
         return _sparse_blocks(mesh, st, stp, ref, pos, gval, kmiss,
-                              ps.score_entries_T)
+                              ps.score_sparse_stp_T)
     return fn
 
 
 def sharded_sparse_score_plain(mesh: Mesh, st, stp, ref, pos, gval, kmiss):
     """Plain twin of mesh B1: the per-shard loop over
-    ``score_entries_T_plain``; same inputs and outputs as the function that
-    ``sharded_sparse_score_fn`` returns."""
+    ``score_sparse_stp_T_plain``; same inputs and outputs as the function
+    that ``sharded_sparse_score_fn`` returns."""
     return _sparse_blocks(mesh, st, stp, ref, pos, gval, kmiss,
-                          ps.score_entries_T_plain)
+                          ps.score_sparse_stp_T_plain)
 
 
 def sharded_placement_reduce(mesh: Mesh, st, stp, ref, active, is_leaf,
@@ -380,23 +365,16 @@ def sharded_placement_reduce(mesh: Mesh, st, stp, ref, active, is_leaf,
                              kmiss):
     """The fused sparse step over the mesh (B2 per shard): every shard
     reduces its node rows against its samples to tie-break partials
-    (ops/placement_sparse.placement_partials, the B2 kernel on CUDA), and
-    the partials are merged exactly over the node shards.  bfs_rank holds
-    global ranks.  Returns (best_score, best_rank, num_best) [B] int32 on
-    the lead device."""
-    red = _node_reductions(mesh, st, stp, ref)
-
+    (ops/placement_sparse.placement_partials with the row sums taken in the
+    kernel: one fused B2 launch a shard on CUDA), and the partials are
+    merged exactly over the node shards.  bfs_rank holds global ranks.
+    Returns (best_score, best_rank, num_best) [B] int32 on the lead
+    device."""
     def one(idx):
         d, m = idx
-        s = st[d][m]
-        n, b = s.shape[0], pos[d][m].shape[0]
         node = tuple(x[d][m] for x in (active, is_leaf, is_root_mask,
                                        num_leaves, bfs_rank))
-        if n == 0 or b == 0:
-            z = _zeros(n, b, s.device)
-            return ps.partials_plain(z, z, red[idx][2], *node)
-        base, nc_base, nnm = red[idx]
-        return ps.placement_partials(s, stp[d][m], ref[d][m], base, nc_base,
-                                     nnm, *node, pos[d][m], gval[d][m],
-                                     kmiss[d][m])
+        return ps.placement_partials(st[d][m], stp[d][m], ref[d][m], None,
+                                     None, None, *node, pos[d][m],
+                                     gval[d][m], kmiss[d][m])
     return _merge_over_model(mesh, for_each_shard(mesh, one))
