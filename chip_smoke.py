@@ -26,6 +26,12 @@ these phases and fails (non-zero exit) if any of them fails:
                    fewer): mesh B1 against its plain twin and the
                    unsharded B1, the sharded B2 step against the unsharded
                    B2, with the ms of each beside the unsharded call
+  kernel_wide      B1 and B2 (and B1-spr, B1-3d), fused and with given row
+                   sums, at position widths whose rows the launch plan cuts
+                   into column segments: 131,072, 240,000 and 100,003 (no
+                   multiple of 16: the threads copy the segments) on 20,000
+                   rows, 256 samples of 24 entries in 32 slots, against the
+                   plain twins, with ms, plain ms, bound and segment count
   fixture_e2e      the usher CLI's build and place steps on the vendored
                    fixtures, byte-matching tests/goldens/smoke_*
   realistic_e2e    the CLI places 1,024 samples (VCF, ~34 entries each,
@@ -55,6 +61,18 @@ these phases and fails (non-zero exit) if any of them fails:
                    tree's path states and on multi-base ones; score_batch_T
                    and place_arrays under a batch mesh of 4 against the
                    unsharded calls on 256 samples
+  direct_fixture   --pb-direct (placement/direct.py, no host Tree) on the
+                   pb fixture_e2e built: the goldens; with -u -o, byte-equal
+                   to --bigmat -u -o (uncondensed tree and saved pb),
+                   unsharded and with --mesh-devices 4
+  direct_realistic the realistic pb and 1,024 samples through --pb-direct -s
+                   --batch-size 64, synchronous and with
+                   USHER_TPU_DIRECT_PIPE=1: byte-identical to realistic_e2e;
+                   per mode the CLI wall, set-up (pb parse, VCF, BigMAT
+                   build), place_all and where its time goes (sort
+                   pre-pass, device scoring calls, host corrections,
+                   surgery, newick), samples/s, the full host re-score
+                   count and the peak device memory
 
 Kernel against plain comparisons are exact (tolerance 0: the arithmetic is
 integer).  Every comparison covers the kernel with caller-given row sums and
@@ -68,7 +86,8 @@ run, kernels B1 and B2), the mesh path (mesh_fixture and mesh_realistic,
 B1 and B2 per shard: mesh B1's launches are the B1 kernel's there) and
 the BigMAT path (bigmat_fixture,
 bigmat_realistic and bigmat_pandemic's scoring calls, kernel B1-spr in the
-column path).  B1-3d has no caller on any path (its TPU counterpart has
+column path), and the --pb-direct path (direct_fixture and direct_realistic),
+which must launch neither B1 nor B2.  B1-3d has no caller on any path (its TPU counterpart has
 none either), so its main-path count is 0 and only the comparisons launch
 it.  A kernel's bound is the larger of the bytes it must move (inputs read
 once, outputs written once) over the card's published memory rate and its
@@ -607,6 +626,87 @@ def phase_kernel_synth(kern, name, mat, n_samples, n_entries, seed, device):
             "sweep_executed_ms": t["sweep_executed_ms"]}
 
 
+WIDE_WIDTHS = (131_072, 240_000, 100_003)
+
+
+def wide_inputs(rng, N, P, B, K, device):
+    """Tree-like states at a wide position axis, made on the card: ref in
+    every row, a few random branch mutations a row, stp = st[parent] of a
+    random recursive parent array; B samples of K - 8 entries (one in eight
+    missing) in K slots; node metadata with inactive rows."""
+    g = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 31)))
+    ref_h = NIBBLES[rng.integers(0, 4, size=P)]
+    ref = torch.from_numpy(ref_h).to(device)
+    st = ref[None, :].repeat(N, 1)
+    n_mut = 4 * N
+    rows = torch.randint(0, N, (n_mut,), generator=g, device=device)
+    cols = torch.randint(0, P, (n_mut,), generator=g, device=device)
+    st[rows, cols] = torch.from_numpy(NIBBLES).to(device)[
+        torch.randint(0, 4, (n_mut,), generator=g, device=device)]
+    parent = (torch.rand(N, generator=g, device=device)
+              * torch.arange(N, device=device)).long()
+    stp = st[parent]
+    pos_h, gval_h, kmiss_h = synth_slots(rng, ref_h, B, K - 8)
+    kmiss_h[:, ::8] = True
+    gval_h[kmiss_h] = 15
+    pad = np.full((B, 8), P, dtype=np.int32)
+    pos, gval, kmiss = (torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                        for x in (np.concatenate([pos_h, pad], 1),
+                                  np.pad(gval_h, ((0, 0), (0, 8))),
+                                  np.pad(kmiss_h, ((0, 0), (0, 8)))))
+    node = ((torch.rand(N, generator=g, device=device) < 0.95),
+            torch.rand(N, generator=g, device=device) < 0.5,
+            torch.arange(N, device=device) == 0,
+            torch.randint(1, 100, (N,), generator=g, device=device,
+                          dtype=torch.int32),
+            torch.arange(N, dtype=torch.int32, device=device))
+    return st, stp, ref, node, pos, gval, kmiss
+
+
+def phase_kernel_wide(kern, device, N=20_000, B=256, K=32):
+    """B1 and B2 (and B1-spr, B1-3d) at position widths whose rows do not
+    fit a ring stage, so that the plans cut them into column segments:
+    131,072 (aligned, above both one-row limits), 240,000 (above the
+    232,448 columns one packed row fills) and 100,003 (no multiple of 16:
+    the threads copy the segments).  Each with caller-given row sums and
+    fused, against the plain twins, exactly; the median ms of 3 calls."""
+    ps = kern.ps
+    rng = np.random.default_rng(11)
+    out = {}
+    for P in WIDE_WIDTHS:
+        st, stp, ref, node, pos, gval, kmiss = wide_inputs(rng, N, P, B, K,
+                                                           device)
+        limits = ps.device_limits(device.index or 0)
+        plans = {name: ps.launch_plan(P, B, K, fused, P % 16 == 0, b2, limits)
+                 for name, fused, b2 in (("B1", False, False),
+                                         ("B1 fused", True, False),
+                                         ("B2", False, True),
+                                         ("B2 fused", True, True))}
+        if any(pl.segments(P) < 2 for n, pl in plans.items() if "fused" in n):
+            raise AssertionError(f"P={P}: a fused plan of one segment "
+                                 f"{plans}")
+        b1, b2 = kern.compare(st, stp, ref, node, pos, gval, kmiss)
+        f1, f2 = kern.fused_args(b1, b2)
+        bounds = score_bounds(N, P, pos.cpu().numpy(), sweep_ops(st, stp, ref))
+        t = {"B1": (lambda: ps.score_entries_T(*b1),
+                    lambda: ps.score_entries_T_plain(*b1)),
+             "B1 fused": (lambda: ps.score_sparse_stp_T(*f1),
+                          lambda: ps.score_sparse_stp_T_plain(*f1)),
+             "B2": (lambda: ps.placement_reduce(*b2),
+                    lambda: ps.placement_reduce_plain(*b2)),
+             "B2 fused": (lambda: ps.placement_reduce(*f2), None)}
+        out[str(P)] = {
+            name: {"ms": median_ms(fn, runs=3),
+                   "plain_ms": median_ms(plain, runs=3) if plain else None,
+                   "bound": bounds[name], "segments": plans[name].segments(P),
+                   "seg": plans[name].seg, "vec": plans[name].vec}
+            for name, (fn, plain) in t.items()}
+        del st, stp, ref, node, pos, gval, kmiss, b1, b2, f1, f2
+        torch.cuda.empty_cache()
+    return {"N": N, "B": B, "K": K, "widths": list(WIDE_WIDTHS),
+            "max_abs_err": dict(kern.err), "by_width": out}
+
+
 # --- end to end through the CLI --------------------------------------------
 
 @contextlib.contextmanager
@@ -1120,6 +1220,162 @@ def phase_bigmat_realistic(pb, vcf, dense_out, batch_size):
             "stage_seconds": {k: round(v, 3) for k, v in stages.items()}}
 
 
+# --- the no-Tree serving path (--pb-direct) ---------------------------------
+
+@contextlib.contextmanager
+def direct_spies(seen, times):
+    """Record the device of every BigMAT built while the CLI runs, and
+    time, from outside the package, the library calls of a --pb-direct
+    run (seconds by key; a call inside another call of the same key counts
+    once): DirectPlacer's set-up and within it the pb parse, the VCF read,
+    the BigMAT build and its rank recomputation; place_all and within it
+    the sort pre-pass, the device scoring calls (place_arrays_begin, and
+    place_arrays_finish, which waits for the device), the host corrections
+    (_BatchState.resolve), the surgery (apply_placement) and the newick
+    writer."""
+    from usher_tpu_torch.core.bigmat import BigMAT
+    from usher_tpu_torch.placement import direct
+    spied = [(direct, "load_mat_arrays", "load_mat_arrays_s"),
+             (direct, "read_vcf_sites", "read_vcf_s"),
+             (BigMAT, "__init__", "bigmat_init_s"),
+             (BigMAT, "_recompute_ranks", "ranks_s"),
+             (direct.DirectPlacer, "__init__", "placer_init_s"),
+             (direct.DirectPlacer, "place_all", "place_all_s"),
+             (direct.DirectPlacer, "_sorted_indexes", "sort_prepass_s"),
+             (BigMAT, "place_arrays_begin", "scoring_begin_s"),
+             (BigMAT, "place_arrays_finish", "scoring_finish_s"),
+             (direct._BatchState, "resolve", "resolve_s"),
+             (direct.DirectPlacer, "apply_placement", "apply_s"),
+             (direct.DirectPlacer, "write_newick", "write_newick_s")]
+    orig = [getattr(owner, name) for owner, name, _ in spied]
+    depth = {}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            depth[key] = depth.get(key, 0) + 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[key] -= 1
+                if not depth[key]:
+                    times[key] = (times.get(key, 0.0)
+                                  + time.perf_counter() - t0)
+        return run
+
+    def init(self, *a, **k):
+        orig[2](self, *a, **k)
+        seen.append(self.device.type)
+
+    for (owner, name, key), fn in zip(spied, orig):
+        setattr(owner, name, timed(key, init if fn is orig[2] else fn))
+    try:
+        yield
+    finally:
+        for (owner, name, _), fn in zip(spied, orig):
+            setattr(owner, name, fn)
+
+
+def run_direct(argv, env=None):
+    """The CLI with --pb-direct under direct_spies and with its standard
+    error captured (and passed on): (wall s, library-call seconds, BigMAT
+    devices, full host re-score count, stderr text)."""
+    import io
+    seen, times = [], {}
+    buf = io.StringIO()
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    t0 = time.perf_counter()
+    try:
+        with direct_spies(seen, times), contextlib.redirect_stderr(buf):
+            run_cli([*argv, "--pb-direct"])
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t0
+    err = buf.getvalue()
+    sys.stderr.write(err[-2000:])
+    rescores = [l for l in err.splitlines() if l.startswith("[direct] ")]
+    if not rescores:
+        raise AssertionError("--pb-direct printed no re-score count")
+    if not seen or set(seen) != {"cuda"}:
+        raise AssertionError(f"BigMATs built on {seen}, expected cuda")
+    return wall, times, seen, int(rescores[-1].split()[1]), rescores[-1]
+
+
+def phase_direct_fixture(kern, built_pb):
+    """--pb-direct on the pb that fixture_e2e built: the goldens; then -u
+    -o against --bigmat -u -o (the uncondensed tree and the re-condensed
+    pb byte for byte), unsharded and with --mesh-devices 4."""
+    fx = os.path.join(REPO, "tests", "fixtures")
+    out = os.path.join(WORK, "fixture_direct")
+    vcf = os.path.join(fx, "new_samples.vcf")
+    before = kern.counts()
+    run_direct(["-i", built_pb, "-v", vcf, "-d", os.path.join(out, "p"),
+                "--mesh-devices", "0"])
+    same_files(os.path.join(out, "p"), GOLDENS, zip(PLACE_FILES, GOLDEN_FILES))
+    run_cli(["-i", built_pb, "-v", vcf, "-d", os.path.join(out, "bigmat"),
+             "-u", "-o", os.path.join(out, "bigmat", "o.pb"), "--bigmat",
+             "--mesh-devices", "0"])
+    builds = 0
+    for tag, mesh in (("direct", "0"), ("direct_mesh", str(MESH_SHARDS))):
+        _, _, seen, _, _ = run_direct([
+            "-i", built_pb, "-v", vcf, "-d", os.path.join(out, tag), "-u",
+            "-o", os.path.join(out, tag, "o.pb"), "--mesh-devices", mesh])
+        builds += len(seen)
+        same_files(os.path.join(out, tag), os.path.join(out, "bigmat"),
+                   [(f, f) for f in ("uncondensed-final-tree.nh", "o.pb",
+                                     "placement_stats.tsv",
+                                     "mutation-paths.txt")])
+    after = kern.counts()
+    launches = {k: after[k] - before[k] for k in after}
+    if launches["B1"] or launches["B2"]:
+        raise AssertionError(f"--pb-direct launched {launches}")
+    return {"goldens": "byte-identical",
+            "vs_bigmat_u_o": "byte-identical uncondensed-final-tree.nh and "
+                             "pb, unsharded and --mesh-devices "
+                             f"{MESH_SHARDS}",
+            "bigmat_builds": builds, "bigmat_device": "cuda",
+            "launches": launches}
+
+
+def phase_direct_realistic(kern, pb, vcf, dense_out, n_samples, batch_size):
+    """The realistic pb and its samples through --pb-direct -s, in the
+    synchronous order and with USHER_TPU_DIRECT_PIPE=1 (the next batch's
+    scoring enqueued before this batch's host corrections): both must
+    write realistic_e2e's placement_stats.tsv, final-tree.nh and
+    mutation-paths.txt.  Per mode: the CLI wall, the pb load and BigMAT
+    build, place_all, samples/s, full host re-scores and the peak device
+    memory; the window launches no B1 and no B2."""
+    before = kern.counts()
+    modes = {}
+    for mode, env in (("sync", None),
+                      ("pipelined", {"USHER_TPU_DIRECT_PIPE": "1"})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = os.path.join(WORK, "realistic", f"direct_{mode}")
+        wall, times, seen, rescores, line = run_direct(
+            ["-i", pb, "-v", vcf, "-d", out, "-s", "--batch-size",
+             str(batch_size), "--mesh-devices", "0"], env)
+        peak = torch.cuda.max_memory_allocated()
+        same_files(out, dense_out, zip(PLACE_FILES, PLACE_FILES))
+        modes[mode] = dict(
+            cli_seconds=wall, seconds=times,
+            samples_per_s=n_samples / times["place_all_s"],
+            full_host_rescores=rescores, rescore_line=line,
+            peak_device_bytes=peak, bigmat_builds=len(seen))
+    after = kern.counts()
+    launches = {k: after[k] - before[k] for k in after}
+    if launches["B1"] or launches["B2"]:
+        raise AssertionError(f"--pb-direct launched {launches}")
+    return {"vs_realistic_e2e": "byte-identical " + ", ".join(PLACE_FILES)
+            + " (sync and pipelined)", "samples": n_samples,
+            "batch_size": batch_size, "launches": launches, **modes}
+
+
 def synth_bigmat(rng, N, P, n_mut=2, device=None):
     """bench.py's synth_bigmat recipe (random recursive tree, n_mut branch
     mutations at random columns per non-root node) with chain-consistent
@@ -1408,6 +1664,8 @@ def main() -> int:
     phase("kernel_genome", phase_kernel_synth, kern, "kernel_genome",
           genome, 1024, 32, 4, device)
     phase("mesh_kernel", phase_mesh_kernel, kern, genome, 1024, 32, 4, device)
+    wide = Kernels(ps, pmesh)
+    wide_res = phase("kernel_wide", phase_kernel_wide, wide, device)
 
     # set-up of the realistic run (tree, pb, VCF) before the main path
     T, pb, vcf, setup = realistic_setup(genome, 1024, 5)
@@ -1451,6 +1709,17 @@ def main() -> int:
     big_counts = pandemic["launches"]
     # ----------------------------------------------------------------------
 
+    # --- the --pb-direct path: the counters cover its CLI runs, which ----
+    # --- launch neither B1 nor B2 (BigMAT's X5 and X8 score them) --------
+    kern.reset_counts()
+    phase("direct_fixture", phase_direct_fixture, kern,
+          os.path.join(WORK, "fixture", "out.pb"))
+    phase("direct_realistic", phase_direct_realistic, kern, pb, vcf,
+          out_dir, 1024, 64)
+    direct_counts = kern.counts()
+    log(f"--pb-direct path launches: {json.dumps(direct_counts)}")
+    # ----------------------------------------------------------------------
+
     for banned in ("jax", "jaxlib", "usher_tpu"):
         if any(m == banned or m.startswith(banned + ".")
                for m in sys.modules):
@@ -1463,9 +1732,20 @@ def main() -> int:
         if any(got[k] != v for k, v in want.items()) or got["row_reductions"]:
             raise AssertionError(f"{what} path: launches {got}, expected "
                                  f"{want} and no call of row_reductions")
+    if direct_counts["B1"] or direct_counts["B2"]:
+        raise AssertionError(f"--pb-direct path: launches {direct_counts}")
     main_shapes = results["realistic_e2e"]["main_shapes"]
     log("parent_states at the main-path shape: "
         f"{main_shapes['parent_states_ms']:.3f} ms")
+    one_segment = {
+        "headline": {k: results["kernel_headline"][k] for k in (
+            "B1_ms", "B1_fused_ms", "B2_ms", "B2_fused_ms")},
+        "genome": {k: results["kernel_genome"][k] for k in (
+            "B1_ms", "B1_fused_ms", "B2_ms", "B2_fused_ms")},
+        "main_path": {name: {k: main_shapes[name][k]
+                             for k in ("ms", "fused_ms")}
+                      for name in ("B1", "B2")}}
+    log(f"one-segment plans (ms): {json.dumps(one_segment)}")
     genome_ms = kern.ms["kernel_genome"]
     genome_bound = kern.bounds["kernel_genome"]
     mesh_ms = kern.ms["mesh_kernel"]
@@ -1481,9 +1761,17 @@ def main() -> int:
                     bytes_ms=bnd["bytes_ms"], ops_ms=bnd["ops_ms"], **more)
 
     def fused(name):
-        """fused_ms, fused_bound_ms and the main-path shape's numbers."""
+        """fused_ms, fused_bound_ms, the main-path shape's numbers and the
+        wide widths' (column segments)."""
         main = main_shapes[name]
-        return dict(fused_ms=genome_ms[name + " fused"][0],
+        by_width = {P: {k: dict(v, bound=v["bound"]["bound_ms"])
+                        for k, v in res.items() if k.startswith(name)}
+                    for P, res in wide_res["by_width"].items()}
+        return dict(wide_widths=list(WIDE_WIDTHS),
+                    wide_max_abs_err=max(wide.err[name],
+                                         wide.err[name + " fused"]),
+                    wide=by_width,
+                    fused_ms=genome_ms[name + " fused"][0],
                     fused_bound_ms=genome_bound[name + " fused"]["bound_ms"],
                     fused_max_abs_err=kern.err[name + " fused"],
                     main_path=dict(main, bound_ms=main["bound"]["bound_ms"],

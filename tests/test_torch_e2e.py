@@ -148,10 +148,12 @@ def test_mesh_devices_auto_means_no_mesh_on_one_device(built, tmp_path,
 
 
 def test_unported_modes_exit_with_error(built, tmp_path, capsys):
+    """--pb-direct runs (tests/test_torch_direct.py) but, as in the JAX
+    CLI, not with -M > 1; --distributed is not ported yet."""
     assert torch_main(["-i", built, "-v", NEW_VCF, "-d", str(tmp_path),
-                       "--pb-direct"]) == 1
-    err = capsys.readouterr().err
-    assert "not supported by the PyTorch port" in err and "A6b" in err
+                       "--pb-direct", "-M", "2"]) == 1
+    assert capsys.readouterr().err == (
+        "ERROR: --pb-direct does not support -M>1 (use the Tree drivers)\n")
     with pytest.raises(NotImplementedError, match="A11"):
         torch_main(["-i", built, "-v", NEW_VCF, "-d", str(tmp_path),
                     "--distributed"])

@@ -373,3 +373,58 @@ def test_profile_session_from_env(tmp_path, monkeypatch):
     inst.end_session()
     assert os.path.exists(path)
     assert not hasattr(tinstrument, "apply_platform_env")
+
+
+# --- io/pb_arrays, placement/list_tree, placement/direct (the --pb-direct
+# --- slice): the copies keep their originals' code -----------------------
+
+def _code_by_name(path):
+    """Every function and method of a module, by qualified name, as its
+    AST without docstrings (so comments, docstrings and layout may
+    differ, the code may not)."""
+    import ast
+
+    def strip(node):
+        body = getattr(node, "body", None)
+        if (body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+        return node
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = {}
+
+    def walk(node, prefix):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.ClassDef)):
+                name = prefix + child.name
+                if isinstance(child, ast.FunctionDef):
+                    out[name] = ast.dump(strip(child))
+                walk(child, name + ".")
+    walk(tree, "")
+    return out
+
+
+@pytest.mark.parametrize("module,changed", [
+    # the port keeps the pure-Python scanners; its BigMAT takes a device
+    ("io.pb_arrays", {"MatArrays.to_bigmat", "load_mat_arrays"}),
+    ("placement.list_tree", set()),
+    # a parallel.mesh.Mesh instead of a jax Mesh, the BigMAT on its lead
+    ("placement.direct", {"DirectPlacer.__init__"})])
+def test_direct_slice_copies_keep_the_code(module, changed):
+    """Each function of the slice's copies is its original's, apart from
+    the named ones (what tests/test_torch_{pb_arrays,list_tree,direct}.py
+    hold against the JAX package)."""
+    import importlib
+    rel = module.replace(".", os.sep) + ".py"
+    jmod = importlib.import_module("usher_tpu." + module)
+    tmod = importlib.import_module("usher_tpu_torch." + module)
+    want = _code_by_name(os.path.join(os.path.dirname(jmod.__file__),
+                                      os.path.basename(rel)))
+    got = _code_by_name(os.path.join(os.path.dirname(tmod.__file__),
+                                     os.path.basename(rel)))
+    assert sorted(got) == sorted(want)
+    differ = {name for name in want if got[name] != want[name]}
+    assert differ == changed

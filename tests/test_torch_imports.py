@@ -17,13 +17,16 @@ PORT_MODULES = [
     "usher_tpu_torch",
     "usher_tpu_torch.cli.usher_cli",
     "usher_tpu_torch.core.bigmat",
+    "usher_tpu_torch.io.pb_arrays",
     "usher_tpu_torch.ops.interval",
     "usher_tpu_torch.ops.placement_sparse",
     "usher_tpu_torch.ops.sankoff",
     "usher_tpu_torch.parallel.mesh",
     "usher_tpu_torch.parallel.shard",
     "usher_tpu_torch.placement.big_engine",
+    "usher_tpu_torch.placement.direct",
     "usher_tpu_torch.placement.driver",
+    "usher_tpu_torch.placement.list_tree",
     "usher_tpu_torch.tools.subtrees",
     # what chip_smoke.py imports beyond the above
     "usher_tpu_torch.core.flat",

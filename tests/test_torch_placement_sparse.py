@@ -647,6 +647,8 @@ def test_fused_calls_match_explicit_base_and_jax(seed):
 def test_launch_plan(P, B, K, fused, b2, want):
     plan = ps.launch_plan(P, B, K, fused, per_sample_state=b2)
     assert tuple(plan[:4]) == want and plan.grid == ps.H100.sms
+    # a row that fits keeps one segment: the whole row
+    assert plan.seg == P and plan.segments(P) == 1
     pitch = -(-P // 16) * 16
     smem = (ps.H100.smem_header + (pitch if fused else 0)
             + plan.stages * plan.rows * 2 * pitch)
@@ -656,20 +658,165 @@ def test_launch_plan(P, B, K, fused, b2, want):
         assert ps.H100.threads // plan.lanes >= min(B, ps.H100.threads)
 
 
+def _segment_stage_bytes(plan, fused):
+    """Shared memory of a segmented plan: header plus its stages, each one
+    row's segment of st, of stp and (fused) of ref."""
+    return ps.H100.smem_header + plan.stages * plan.seg * (3 if fused else 2)
+
+
 def test_launch_plan_thread_copies_and_limits():
     """P % 16 != 0 or unaligned bases: one stage that the threads fill; a
-    row too wide for a block's shared memory raises."""
+    row too wide for a stage is cut into column segments, a multiple of 16
+    columns wide, whose stages fit the block's shared memory, in the ring
+    (aligned) and in the thread-copy path alike; no width raises."""
     for P, aligned in ((1001, True), (512, False)):
         plan = ps.launch_plan(P, 64, 64, True, aligned=aligned)
         assert (plan.vec, plan.stages) == (0, 1) and plan.rows == 32
+        assert plan.segments(P) == 1
     assert ps.launch_plan(30001, 64, 64, True).rows == 3
-    with pytest.raises(ValueError, match="too wide"):
-        ps.launch_plan(80000, 64, 64, True)
-    assert ps.launch_plan(80000, 64, 64, False).stages == 1
-    with pytest.raises(ValueError, match="too wide"):
-        ps.launch_plan(120000, 64, 64, False)
+    for P, fused, aligned, vec in ((80000, True, True, 1),
+                                   (120000, False, True, 1),
+                                   (131072, True, True, 1),
+                                   (131072, False, True, 1),
+                                   (240000, True, True, 1),
+                                   (240000, False, True, 1),
+                                   (100003, True, True, 0),
+                                   (240000, True, False, 0)):
+        plan = ps.launch_plan(P, 64, 64, fused, aligned=aligned)
+        nseg = plan.segments(P)
+        assert nseg > 1 and plan.rows == 1 and plan.vec == vec
+        assert plan.stages == (ps.MAX_STAGES if vec else 1)
+        assert plan.seg % 16 == 0 and (nseg - 1) * plan.seg < P <= \
+            nseg * plan.seg
+        assert _segment_stage_bytes(plan, fused) <= ps.H100.smem_max
+        assert plan.seg * (3 if fused else 2) < 1 << 20
+    # the widest row that fits one stage stays whole
+    assert ps.launch_plan(80000, 64, 64, False).segments(80000) == 1
+    assert ps.launch_plan(100003, 64, 64, False).segments(100003) == 1
     # more samples than threads: B2 takes them in tiles of one lane each
     assert ps.launch_plan(512, 5000, 8, True, per_sample_state=True).lanes == 1
+
+
+def _clip_table(table, c0, w):
+    """numpy transcription of the kernels' clip_quad over a sample's slot
+    table [Q, 7]: slots in columns c0 .. c0 + w - 1 move to their column
+    within the segment, all others lose their allele, reference and flag
+    bytes and look up column 0."""
+    t = table.astype(np.int64) & M32
+    for q in range(t.shape[0]):
+        keep = 0
+        for i in range(4):
+            d = (t[q, i] - c0) & M32
+            inside = d < w
+            t[q, i] = d if inside else 0
+            keep |= (0xFF << (8 * i)) if inside else 0
+        t[q, 4:] &= keep
+    return t
+
+
+@pytest.mark.parametrize("seg,spr", [(48, False), (48, True), (80, False)])
+def test_segmented_rows_match_plain(seg, spr):
+    """The kernels' walk over column segments, transcribed: each segment's
+    packed rows with its clipped slot quads, and its swept row sums, added
+    up over a row's segments, equal the plain twin's whole-row scores and
+    row sums (B1), and B2's fold after the last segment the plain argmin;
+    the last segment is ragged."""
+    jflat, flat, samples = _case(50 + seg, n_leaves=24, n_positions=100,
+                                 n_samples=6, n_entries=9)
+    st, parent = flat.sync()
+    _, m = _meta(flat)
+    stp = dev.parent_states(st, parent, flat.root_slot)
+    ref = flat.ref_dev
+    N, P = st.shape
+    assert P % seg and P > seg
+    pos, gval, kmiss = (_t(x) for x in ps.sparsify(samples, flat.pos_index,
+                                                   flat.P_pad))
+    table, qend = ps._slot_words(P, ref, pos, gval, kmiss)
+    B = pos.shape[0]
+    score = np.zeros((N, B), np.int64)
+    nc = np.zeros((N, B), np.int64)
+    sums = [np.zeros(N, np.int64) for _ in range(3)]
+    nseg = -(-P // seg)
+    for sg in range(nseg):
+        c0 = sg * seg
+        w = min(seg, P - c0)
+        cols = slice(c0, c0 + w)
+        packed, seg_sums = _sweep_rows(st[:, cols].numpy(),
+                                       stp[:, cols].numpy(),
+                                       ref[cols].numpy())
+        for k in range(3):
+            sums[k] += seg_sums[k]
+        for b in range(B):
+            clipped = _clip_table(table[:, :, b].numpy(), c0, w)
+            for n in range(N):
+                cs, ns = _entry_sums_lanes(packed[n], clipped, int(qend[b]),
+                                           2, spr)
+                score[n, b] += seg_sums[0][n] + cs
+                nc[n, b] += seg_sums[1][n] + ns
+    base, nc_base, nnm = ps.row_reductions(st, stp, ref)
+    for got, want in zip(sums, (base, nc_base, nnm)):
+        np.testing.assert_array_equal(got, want.numpy())
+    want = ps.score_entries_T_plain(st, stp, ref, base, nc_base, pos, gval,
+                                    kmiss, spr=spr)
+    np.testing.assert_array_equal(score, want[0].numpy())
+    np.testing.assert_array_equal(nc, want[1].numpy())
+    if spr:
+        return
+    parts = ps.partials_plain(_t(score.astype(np.int32)),
+                              _t(nc.astype(np.int32)), _t(sums[2].astype(
+                                  np.int32)), *m)
+    best, rank, num_best = ps.merge_partials(*parts)
+    got = (best, ps.row_of_rank(rank, m[4], N), num_best)
+    for a, b in zip(got, ps.placement_reduce_plain(
+            st, stp, ref, base, nc_base, nnm, *m, pos, gval, kmiss)):
+        assert torch.equal(a, b)
+
+
+def test_wide_position_axis_matches_jax():
+    """At P = 131,072, a width whose rows the kernels cut into segments, the
+    port's fused scoring and B2 calls equal the JAX package's dense scoring
+    and placement step on the same inputs."""
+    rng = np.random.default_rng(131)
+    N, P, B = 48, 131072, 4
+    parent = np.concatenate([[0], rng.integers(0, np.arange(1, N))])
+    ref = NIBBLES[rng.integers(0, 4, size=P)]
+    st = np.repeat(ref[None, :], N, axis=0)
+    for n in range(1, N):                      # chain-consistent states
+        st[n] = st[parent[n]]
+        cols = rng.choice(P, size=6, replace=False)
+        st[n, cols] = NIBBLES[rng.integers(0, 4, size=6)]
+    g = np.repeat(ref[None, :], B, axis=0)
+    E = np.zeros((B, P), bool)
+    miss = np.zeros((B, P), bool)
+    for b in range(B):
+        cols = rng.choice(P, size=10, replace=False)
+        g[b, cols] = NIBBLES[rng.integers(0, 4, size=10)]
+        g[b, cols[:2]] = 15
+        miss[b, cols[:2]] = True
+        E[b, cols] = True
+    pos, gval, kmiss = ps.sparsify_dense(g, E, miss)
+    assert ps.launch_plan(P, B, pos.shape[1], True).segments(P) > 1
+    active = np.ones(N, bool)
+    is_leaf = ~np.isin(np.arange(N), parent[1:])
+    is_root = np.arange(N) == 0
+    leaves = rng.integers(1, 50, size=N).astype(np.int32)
+    rank = rng.permutation(N).astype(np.int32)
+    st_t, par_t = _t(st), _t(parent.astype(np.int32))
+    stp = dev.parent_states(st_t, par_t, 0)
+    got = ps.score_sparse_stp_T(st_t, stp, _t(ref), _t(pos), _t(gval),
+                                _t(kmiss))
+    want = jdev.score_batch(st, parent.astype(np.int32), 0, ref, active, g, E,
+                             miss)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]).T)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]).T)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    got = ps.placement_step_sparse(st_t, par_t, 0, _t(ref), _t(active),
+                                   _t(is_leaf), _t(is_root), _t(leaves),
+                                   _t(rank), _t(pos), _t(gval), _t(kmiss))
+    want = jdev.placement_step(st, parent.astype(np.int32), 0, ref, active,
+                               is_leaf, is_root, leaves, rank, g, E, miss)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 @pytest.mark.parametrize("empty", ["samples", "rows"])

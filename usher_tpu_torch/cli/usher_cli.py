@@ -3,9 +3,10 @@ parsimony, on the device that USHER_TPU_PLATFORM names (cuda by default).
 
 Counterpart of usher_tpu/cli/usher_cli.py with the same flags and messages;
 the flag surface mirrors the reference `usher` binary (src/usher.cpp:47-86).
-The classic Tree path, its --bigmat engine and placement sharded over a
-device mesh (--mesh-devices N, parallel/mesh.py) are ported; --pb-direct and
---distributed are later slices and stop with an error.
+The classic Tree path, its --bigmat engine, placement sharded over a
+device mesh (--mesh-devices N, parallel/mesh.py) and the no-Tree serving
+path --pb-direct (placement/direct.py) are ported; --distributed is a later
+slice and stops with an error.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import argparse
 import os
 import sys
 import time
+
+import torch
 
 from ..io.newick import parse_newick
 from ..io.pbio import load_mat_pb
@@ -67,7 +70,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--distributed", action="store_true",
                    help="Multi-host placement (not ported yet)")
     p.add_argument("--pb-direct", action="store_true",
-                   help="No-Tree serving path over BigMAT (not ported yet)")
+                   help="No-Tree serving path: load the MAT as flat arrays "
+                        "(io/pb_arrays.py) and place entirely over BigMAT, "
+                        "for pandemic-scale MATs where host Node objects "
+                        "cost minutes/GBs.  Supports the full usher surface "
+                        "(-i/-v/-d/-n/-o/-u/-e/-E, sorts -s/-S/-A/-r, -p, "
+                        "-c/-C, -D, -k/-K, --batch-size) except -M>1 (Tree "
+                        "drivers)")
     p.add_argument("--bigmat", action="store_true",
                    help="Use the CSR BigMAT engine (pandemic-scale path)")
     p.add_argument("--version", action="version",
@@ -83,9 +92,7 @@ def main(argv=None) -> int:
         raise NotImplementedError("multi-host placement is not ported yet "
                                   "(ROADMAP A11, multi-GPU)")
     if args.pb_direct:
-        print("ERROR: --pb-direct is not supported by the PyTorch port yet "
-              "(ROADMAP A6b)", file=sys.stderr)
-        return 1
+        return _pb_direct(args, device)
 
     t0 = time.time()
     if args.tree:
@@ -139,6 +146,69 @@ def main(argv=None) -> int:
         print_subtrees_single=args.write_single_subtree,
     )
     return run_usher(T, missing_samples, opts, vcf, device)
+
+
+def _pb_direct(args, device) -> int:
+    """--pb-direct: the JAX CLI's checks, then placement/direct.py over a
+    BigMAT on ``device``, or on a batch mesh of --mesh-devices N > 1 shards
+    (-1: every visible card when there are several)."""
+    if not args.din:
+        print("ERROR: --pb-direct requires -i MAT.pb", file=sys.stderr)
+        return 1
+    if args.multiple_placements > 1:
+        print("ERROR: --pb-direct does not support -M>1 "
+              "(use the Tree drivers)", file=sys.stderr)
+        return 1
+    # the Tree driver's flag-combination validation (run_usher)
+    if args.write_subtrees_size == 1:
+        print("ERROR: print-subtrees-size should be larger than 1",
+              file=sys.stderr)
+        return 1
+    if args.no_add and (args.write_subtrees_size > 0
+                        or args.write_single_subtree):
+        print("ERROR: Sorry, cannot output subtrees when -n/--no-add "
+              "is specified.", file=sys.stderr)
+        return 1
+    if (args.sort_before_placement_1 + args.sort_before_placement_2
+            + args.sort_before_placement_3) > 1:
+        print("ERROR: Can't use two or more of sort-before-placement-1, "
+              "sort-before-placement-2 and sort-before-placement-3 "
+              "simultaneously.", file=sys.stderr)
+        return 1
+    if args.reverse_sort and not (args.sort_before_placement_1
+                                  or args.sort_before_placement_2
+                                  or args.sort_before_placement_3):
+        print("ERROR: Can't use reverse-sort without sorting options",
+              file=sys.stderr)
+        return 1
+    from ..placement.direct import DirectOptions, run_usher_direct
+    mesh = None
+    want = args.mesh_devices
+    if want == -1:
+        nd = torch.cuda.device_count() if device.type == "cuda" else 1
+        want = nd if nd > 1 else 0
+    if want > 1:
+        from ..parallel.mesh import make_mesh
+        mesh = make_mesh(want, device=device)
+        print(f"Sharding direct placement over {want} devices.",
+              file=sys.stderr)
+    return run_usher_direct(args.din, args.vcf, DirectOptions(
+        outdir=args.outdir, batch_size=args.batch_size,
+        max_uncertainty=args.max_uncertainty_per_sample,
+        max_parsimony=args.max_parsimony_per_sample,
+        no_add=args.no_add,
+        uncondensed=args.write_uncondensed_final_tree,
+        sort_before_placement_1=args.sort_before_placement_1,
+        sort_before_placement_2=args.sort_before_placement_2,
+        sort_before_placement_3=args.sort_before_placement_3,
+        reverse_sort=args.reverse_sort,
+        print_parsimony_scores=args.write_parsimony_scores_per_node,
+        detailed_clades=args.detailed_clades,
+        collapse_tree=args.collapse_tree,
+        collapse_output_tree=args.collapse_output_tree,
+        print_subtrees_size=args.write_subtrees_size,
+        print_subtrees_single=args.write_single_subtree,
+        dout_filename=args.dout or ""), mesh=mesh)
 
 
 if __name__ == "__main__":

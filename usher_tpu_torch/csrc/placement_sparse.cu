@@ -67,6 +67,19 @@
 //   phase can count.)  Bulk copies need 16-byte alignment: for P % 16 != 0
 //   or unaligned bases (vec = 0) the threads copy the rows themselves into
 //   slot 0, one group at a time.
+// * Column segments.  Where not even one row of st and of stp (and, fused,
+//   of ref) fits a stage, the ring's unit is a (row, column segment): the
+//   caller cuts a row into segments of `seg` columns (a multiple of 16), a
+//   stage holds one row's segment of st, of stp and of ref (fused), and the
+//   block walks a row's segments one after another.  A slot whose column
+//   lies outside the resident segment has its allele, reference and flag
+//   bytes cleared (clip_quad), so it counts nothing there.  B1 writes a
+//   row's outputs with its first segment and adds every later segment's
+//   share (base, nc_base and node_num_mut included); B2 carries the row's
+//   score, num_common and branch-mutation count across the segments and
+//   applies validity and the tie-break fold after the last.  A segment
+//   walks every quad of a sample, so a row of S segments costs S times the
+//   quad loads of one; reading st and stp still happens once.
 // * The folded sweep.  When a slot has landed, every warp sweeps 512-column
 //   segments of its rows: 16 columns per lane as uint4, four cells per
 //   32-bit word with byte-parallel compares against the reference row held
@@ -122,11 +135,12 @@
 //
 // ptxas (sm_90a, CUDA 12.8, -O3, __launch_bounds__(1024, 1), which caps a
 // thread at 64 registers; from the build log beside the library): every
-// score_entries_kernel<kSpr, kTiled, kRC> uses 62 registers at kRC 1 and 64
-// at kRC 4, without spills; placement_partials_kernel<1> 64 registers with
-// 12 bytes of spill stores and 28 of loads, placement_partials_kernel<4> 64
-// with 36 bytes of spill stores and 92 of loads (its partial, its sample's first
-// quad and four rows' sums are live together).
+// score_entries_kernel<kSpr, kTiled, kRC, kSeg> uses 62 registers at kRC 1
+// and 64 at kRC 4 and with kSeg, without spills; placement_partials_kernel
+// <1, false> 64 registers with 8 bytes of spill stores and 8 of loads,
+// <4, false> 64 with 28 bytes of spill stores and 80 of loads (its partial,
+// its sample's first quad and four rows' sums are live together), <1, true>
+// 64 with 92 and 124 (the carry of a row across its segments besides).
 //
 // Slot table (built by placement_sparse.py::_slot_words): int32 [Q, 7, B]
 // for B samples of K slots, Q = ceil(K / 4) quads, b fastest so that
@@ -188,15 +202,23 @@ __device__ long long usher_prof[kProfBlocks * 8];
 #define USHER_PROF_END
 #endif
 
-// How a launch cuts st/stp [N, P] into row groups and ring stages.
+// How a launch cuts st/stp [N, P] into ring units and stages.  A unit is a
+// (row group, column segment): `rows` node rows over `seg` columns.  Where a
+// row of st, of stp and (fused) of ref fits a stage, one segment holds the
+// whole row (nseg 1, the reference row staged once per block); otherwise
+// rows is 1 and a row's nseg segments are units of their own, each stage
+// holding its segment of the reference row beside the two planes.
 struct Ring {
   long long N;
   long long groups;  // ceil(N / rows)
   int P;
-  int pitch;   // bytes between rows of a plane in shared memory, P up to 16
+  int pitch;   // bytes between rows of a plane in shared memory, seg up to 16
   int rows;    // node rows of a group
   int stages;  // ring slots
   int vec;     // 1: bulk copies fill the ring; 0: the threads copy into slot 0
+  int seg;     // columns of a segment (P where one segment holds the row)
+  int nseg;    // segments of a row
+  int stage_bytes;  // st plane, stp plane and (fused, nseg > 1) ref segment
 };
 
 // --- mbarrier and bulk-copy primitives ---------------------------------------
@@ -250,56 +272,99 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 
 // --- the row ring --------------------------------------------------------------
 
-// The shared memory of a block, and the block's walk over its row groups.
+// The shared memory of a block, and the block's walk over its units.
 struct Block {
   uint64_t* full;
   uint64_t* empty;
   int* red;        // [stages, rows, 3] row sums of the slots
-  uint8_t* refs;   // reference row (fused form only), zero beyond P
-  uint8_t* ring;   // [stages] x (st plane [rows, pitch], stp plane)
+  uint8_t* refs;   // reference row (fused, one segment), zero beyond P
+  uint8_t* ring;   // [stages] x (st plane [rows, pitch], stp plane, ref seg)
   long long my_groups;
 
-  __device__ Block(uint8_t* sm, const Ring& g, bool fused) {
+  // ref_row: the block stages the whole reference row once (fused, one
+  // segment)
+  __device__ Block(uint8_t* sm, const Ring& g, bool ref_row) {
     full = reinterpret_cast<uint64_t*>(sm);
     empty = full + kMaxStages;
     red = reinterpret_cast<int*>(sm + kRedOffset);
     refs = sm + kHeader;
-    ring = refs + (fused ? g.pitch : 0);
+    ring = refs + (ref_row ? g.pitch : 0);
     my_groups = (long long)blockIdx.x < g.groups
                     ? (g.groups - blockIdx.x + gridDim.x - 1) / gridDim.x
                     : 0;
   }
 
   __device__ __forceinline__ uint8_t* slot(const Ring& g, int s) const {
-    return ring + (size_t)s * g.rows * 2 * g.pitch;
+    return ring + (size_t)s * g.stage_bytes;
+  }
+
+  // the reference segment staged beside slot s's planes (fused, nseg > 1)
+  __device__ __forceinline__ uint8_t* slot_ref(const Ring& g, int s) const {
+    return slot(g, s) + (size_t)2 * g.rows * g.pitch;
   }
 };
 
-__device__ __forceinline__ long long group_of(long long unit,
-                                              long long my_groups) {
-  return (long long)blockIdx.x + (unit % my_groups) * (long long)gridDim.x;
+// Unit u of a block's walk: the block's row groups blockIdx.x, blockIdx.x +
+// gridDim.x, ... each with its segments 0 .. nseg - 1 in turn (B2 walks
+// them once per sample tile, so u counts on over the tiles).  kSeg false:
+// one segment, the whole row.
+struct Unit {
+  long long n0;  // first node row
+  int nrows;     // rows of the group
+  int seg;       // column segment
+  int c0;        // its first column
+  int w;         // its columns
+};
+
+template <bool kSeg>
+__device__ __forceinline__ Unit unit_at(const Ring& g, long long u,
+                                        long long my_groups) {
+  Unit x;
+  long long group;
+  if constexpr (kSeg) {
+    const long long v = u % (my_groups * g.nseg);
+    group = (long long)blockIdx.x + (v / g.nseg) * (long long)gridDim.x;
+    x.seg = (int)(v % g.nseg);
+    x.c0 = x.seg * g.seg;
+    x.w = min(g.seg, g.P - x.c0);
+  } else {
+    group = (long long)blockIdx.x + (u % my_groups) * (long long)gridDim.x;
+    x.seg = 0;
+    x.c0 = 0;
+    x.w = g.P;
+  }
+  x.n0 = group * g.rows;
+  x.nrows = (int)min((long long)g.rows, g.N - x.n0);
+  return x;
 }
 
-// Thread 0: zero the slot's row sums and start the two bulk copies of a row
-// group into it.
+// Thread 0: zero the slot's row sums and start the bulk copies of a unit
+// into it.  A plane's rows of a unit are one contiguous run of device
+// memory: the whole rows when nseg is 1, one row's segment otherwise; kSeg
+// with ref (fused) also copies the segment of ref.
+template <bool kSeg>
 __device__ void fill_slot(const Block& blk, const Ring& g,
                           const uint8_t* __restrict__ st,
-                          const uint8_t* __restrict__ stp, long long group,
+                          const uint8_t* __restrict__ stp,
+                          const uint8_t* __restrict__ ref, const Unit& x,
                           int s) {
-  const long long n0 = group * g.rows;
-  const int nrows = (int)min((long long)g.rows, g.N - n0);
-  const uint32_t bytes = (uint32_t)nrows * (uint32_t)g.P;  // pitch == P
+  const uint32_t bytes = (uint32_t)x.nrows * (uint32_t)x.w;
   int* red = blk.red + s * g.rows * 3;
   for (int i = 0; i < g.rows * 3; ++i) red[i] = 0;
   uint8_t* dst = blk.slot(g, s);
-  mbar_arrive_expect_tx(&blk.full[s], 2u * bytes);
-  bulk_copy(dst, st + (size_t)n0 * g.P, bytes, &blk.full[s]);
-  bulk_copy(dst + (size_t)g.rows * g.pitch, stp + (size_t)n0 * g.P, bytes,
-            &blk.full[s]);
+  const size_t src = (size_t)x.n0 * g.P + x.c0;
+  const bool ref_seg = kSeg && ref != nullptr;
+  mbar_arrive_expect_tx(&blk.full[s],
+                        2u * bytes + (ref_seg ? (uint32_t)x.w : 0u));
+  bulk_copy(dst, st + src, bytes, &blk.full[s]);
+  bulk_copy(dst + (size_t)g.rows * g.pitch, stp + src, bytes, &blk.full[s]);
+  if (ref_seg)
+    bulk_copy(blk.slot_ref(g, s), ref + x.c0, (uint32_t)x.w, &blk.full[s]);
 }
 
 // Set up the block: barriers, the reference row, and the first `stages`
-// groups in flight.
+// units in flight.
+template <bool kSeg>
 __device__ void ring_begin(const Block& blk, const Ring& g,
                            const uint8_t* __restrict__ st,
                            const uint8_t* __restrict__ stp,
@@ -311,28 +376,32 @@ __device__ void ring_begin(const Block& blk, const Ring& g,
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if (ref != nullptr) {
+  if (!kSeg && ref != nullptr) {
     for (int c = threadIdx.x; c < g.pitch; c += kThreads)
       blk.refs[c] = c < g.P ? ref[c] : (uint8_t)0;
   }
   __syncthreads();
   if (threadIdx.x == 0 && g.vec) {
     for (int s = 0; s < g.stages && s < units; ++s)
-      fill_slot(blk, g, st, stp, group_of(s, blk.my_groups), s);
+      fill_slot<kSeg>(blk, g, st, stp, ref, unit_at<kSeg>(g, s, blk.my_groups),
+                      s);
   }
 }
 
 // Wait until unit u's rows are in shared memory; returns its slot.  In the
 // ring, thread 0 first refills the slot that unit u - 1 used.
+template <bool kSeg>
 __device__ int ring_acquire(const Block& blk, const Ring& g,
                             const uint8_t* __restrict__ st,
-                            const uint8_t* __restrict__ stp, long long u,
-                            long long units, long long n0, int nrows) {
+                            const uint8_t* __restrict__ stp,
+                            const uint8_t* __restrict__ ref, long long u,
+                            long long units, const Unit& x) {
   if (g.vec) {
     if (threadIdx.x == 0 && u >= 1 && u - 1 + g.stages < units) {
       const int s = (int)((u - 1) % g.stages);
       mbar_wait(&blk.empty[s], (uint32_t)(((u - 1) / g.stages) & 1));
-      fill_slot(blk, g, st, stp, group_of(u - 1 + g.stages, blk.my_groups), s);
+      fill_slot<kSeg>(blk, g, st, stp, ref,
+                      unit_at<kSeg>(g, u - 1 + g.stages, blk.my_groups), s);
     }
     const int s = (int)(u % g.stages);
     // one lane of a warp polls; the warp's other lanes take its word for it
@@ -341,18 +410,23 @@ __device__ int ring_acquire(const Block& blk, const Ring& g,
     __syncwarp();
     return s;
   }
-  // the threads copy the rows themselves: columns P .. pitch are zero, which
+  // the threads copy the unit themselves: columns w .. pitch are zero, which
   // the sweep counts as nothing
-  __syncthreads();  // everyone has scored the previous group
+  __syncthreads();  // everyone has scored the previous unit
   if (threadIdx.x < g.rows * 3) blk.red[threadIdx.x] = 0;
   uint8_t* dst = blk.slot(g, 0);
-  const int total = nrows * g.pitch;
+  const int total = x.nrows * g.pitch;
   for (int i = threadIdx.x; i < total; i += kThreads) {
     const int r = i / g.pitch;
     const int c = i - r * g.pitch;
-    const size_t off = (size_t)(n0 + r) * g.P + c;
-    dst[i] = c < g.P ? st[off] : (uint8_t)0;
-    dst[(size_t)g.rows * g.pitch + i] = c < g.P ? stp[off] : (uint8_t)0;
+    const size_t off = (size_t)(x.n0 + r) * g.P + x.c0 + c;
+    dst[i] = c < x.w ? st[off] : (uint8_t)0;
+    dst[(size_t)g.rows * g.pitch + i] = c < x.w ? stp[off] : (uint8_t)0;
+  }
+  if (kSeg && ref != nullptr) {
+    uint8_t* dref = blk.slot_ref(g, 0);
+    for (int c = threadIdx.x; c < g.pitch; c += kThreads)
+      dref[c] = c < x.w ? ref[x.c0 + c] : (uint8_t)0;
   }
   __syncthreads();
   return 0;
@@ -419,8 +493,9 @@ __device__ __forceinline__ void flush_sums(int* red_row, int s_base, int s_nc,
 // lane) before it turns to the byte-parallel masks for the whole unit.
 constexpr int kFixupWords = 3;
 
-// Sweep the nrows rows of a slot: warp w takes the (row, 512-column segment)
-// units w, w + kWarps, ...; packs st | stp << 4 over the st plane and, when
+// Sweep the nrows rows of a slot over their first `words` uint4 words (the
+// unit's columns): warp w takes the (row, 512-column span) pieces w, w +
+// kWarps, ...; packs st | stp << 4 over the st plane and, when
 // kSums, adds the rows' three sums into red [rows, 3].  A 16-cell word whose
 // st, stp and ref agree counts nothing.  On a tree's states few words of a
 // unit do otherwise: up to kFixupWords of them are counted after the pack,
@@ -429,35 +504,35 @@ constexpr int kFixupWords = 3;
 // differs takes the byte-parallel masks.
 template <bool kSums>
 __device__ void sweep_slot(uint8_t* slot, const uint8_t* refs, int* red,
-                           const Ring& g, int nrows) {
+                           const Ring& g, int nrows, int words) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int wpr = g.pitch >> 4;        // uint4 words of a row
-  const int segs = (wpr + 31) >> 5;
-  const int units = nrows * segs;
+  const int stride = g.pitch >> 4;     // uint4 words between rows
+  const int spans = (words + 31) >> 5;
+  const int pieces = nrows * spans;
   uint4* plane_a = reinterpret_cast<uint4*>(slot);
   const uint4* plane_p =
       reinterpret_cast<const uint4*>(slot + (size_t)g.rows * g.pitch);
   const uint4* ref4 = reinterpret_cast<const uint4*>(refs);
   int cur = -1, s_base = 0, s_nc = 0, s_mut = 0;
-  int r = warp / segs;           // unit u is segment seg of row r
-  int seg = warp - r * segs;
-  for (int u = warp; u < units; u += kWarps, seg += kWarps) {
-    while (seg >= segs) {
-      seg -= segs;
+  int r = warp / spans;          // piece u is span sp of row r
+  int sp = warp - r * spans;
+  for (int u = warp; u < pieces; u += kWarps, sp += kWarps) {
+    while (sp >= spans) {
+      sp -= spans;
       ++r;
     }
-    const int c0 = seg << 5;  // the unit's first word of the row
+    const int c0 = sp << 5;  // the piece's first word of the row
     const int c = c0 + lane;
     if (kSums && r != cur) {
       if (cur >= 0) flush_sums(red + cur * 3, s_base, s_nc, s_mut);
       cur = r;
       s_base = s_nc = s_mut = 0;
     }
-    const int i = r * wpr + c;
+    const int i = r * stride + c;
     uint4 a = make_uint4(0u, 0u, 0u, 0u), p = a, rf = a;
     bool differs = false;
-    if (c < wpr) {
+    if (c < words) {
       a = plane_a[i];
       p = plane_p[i];
       if (kSums) {
@@ -484,7 +559,7 @@ __device__ void sweep_slot(uint8_t* slot, const uint8_t* refs, int* red,
         todo = 0;
       }
     }
-    if (c < wpr) {
+    if (c < words) {
       a.x |= p.x << 4;
       a.y |= p.y << 4;
       a.z |= p.z << 4;
@@ -498,7 +573,7 @@ __device__ void sweep_slot(uint8_t* slot, const uint8_t* refs, int* red,
         todo &= todo - 1;
         uint32_t v = 0, rk = 0;
         if (lane < 16) {
-          v = slot[((size_t)r * wpr + w) * 16 + lane];
+          v = slot[((size_t)r * stride + w) * 16 + lane];
           rk = refs[w * 16 + lane];
         }
         const uint32_t sv = v & 0xFu;
@@ -584,6 +659,24 @@ __device__ __forceinline__ void add_quad(uint32_t v, const Quad& x, int& c,
   n += __popc(bm & matched) - __popc(bm & matched_r);
 }
 
+// A unit that holds columns c0 .. c0 + w - 1 of the rows: a slot whose
+// column lies in it is looked up at its column within the unit, and any
+// other slot has its allele, reference and flag bytes cleared (and column
+// 0), so that add_quad counts nothing for it.
+__device__ __forceinline__ void clip_quad(Quad& x, int c0, int w) {
+  uint32_t keep = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t d = x.pos[i] - (uint32_t)c0;  // wraps below c0
+    const bool in = d < (uint32_t)w;
+    x.pos[i] = in ? d : 0u;
+    keep |= in ? 0xFFu << (8 * i) : 0u;
+  }
+  x.g &= keep;
+  x.r &= keep;
+  x.fl &= keep;
+}
+
 // A lane's view of one sample: its qend and its first quad (q = sub), which
 // a lane that keeps its sample from one row group to the next loads once
 // per launch.
@@ -607,17 +700,20 @@ __device__ __forceinline__ SampleSlots load_sample(
 // the sample's quads, then folded over the `lanes` lanes of the group: every
 // lane of the group returns the whole sums.  All 32 lanes of a warp call
 // this together; lanes without a sample pass qend = 0.  The next quad is
-// requested before the current one is looked up.
-template <bool kSpr, int kRC>
+// requested before the current one is looked up.  kSeg: the rows hold the
+// columns c0 .. c0 + w - 1 only, and the slots outside them count nothing.
+template <bool kSpr, int kRC, bool kSeg>
 __device__ __forceinline__ void entry_sums(
     const uint8_t* __restrict__ rows, int pitch,
     const uint32_t* __restrict__ table, int B, const SampleSlots& ss, int sub,
-    int lanes, int (&cs)[kRC], int (&ns)[kRC]) {
+    int lanes, int c0, int w, int (&cs)[kRC], int (&ns)[kRC]) {
 #pragma unroll
   for (int j = 0; j < kRC; ++j) cs[j] = ns[j] = 0;
   Quad x = ss.first;
+  if constexpr (kSeg) clip_quad(x, c0, w);
   for (int q = sub; q < ss.qend; q += lanes) {
-    const Quad next = load_quad(table, q + lanes, ss.b, B, ss.qend);
+    Quad next = load_quad(table, q + lanes, ss.b, B, ss.qend);
+    if constexpr (kSeg) clip_quad(next, c0, w);
     uint32_t v[kRC];
 #pragma unroll
     for (int j = 0; j < kRC; ++j) {
@@ -648,8 +744,11 @@ __device__ __forceinline__ void entry_sums(
 // [bt, n_pad, tb] buffers instead of [n][b] of [N, B]; rows >= N and samples
 // >= B of a tile are not written.  ref != nullptr selects the fused form:
 // base/nc_base come from the sweep and the three row sums are written to
-// sums_out [3, N].
-template <bool kSpr, bool kTiled, int kRC>
+// sums_out [3, N].  kSeg (rows of several column segments, kRC 1): the
+// first segment of a row writes its outputs and every later one adds its
+// share to them; the same thread writes an output in each segment, so this
+// needs no atomics.
+template <bool kSpr, bool kTiled, int kRC, bool kSeg>
 __global__ void __launch_bounds__(kThreads, 1)
 score_entries_kernel(const uint8_t* __restrict__ st,
                      const uint8_t* __restrict__ stp,
@@ -661,11 +760,12 @@ score_entries_kernel(const uint8_t* __restrict__ st,
                      int lanes, int tb, long long n_pad,
                      int32_t* __restrict__ score_t, int32_t* __restrict__ nc_t,
                      int32_t* __restrict__ sums_out) {
+  static_assert(!kSeg || kRC == 1, "segmented rows are scored one at a time");
   extern __shared__ uint4 smem_raw[];
   const bool fused = ref != nullptr;
-  const Block blk(reinterpret_cast<uint8_t*>(smem_raw), g, fused);
-  const long long units = blk.my_groups;
-  ring_begin(blk, g, st, stp, ref, units);
+  const Block blk(reinterpret_cast<uint8_t*>(smem_raw), g, fused && !kSeg);
+  const long long units = kSeg ? blk.my_groups * g.nseg : blk.my_groups;
+  ring_begin<kSeg>(blk, g, st, stp, ref, units);
   const int n_groups = kThreads / lanes;  // thread groups of the block
   const int grp = threadIdx.x / lanes;
   const int sub = threadIdx.x % lanes;
@@ -678,16 +778,20 @@ score_entries_kernel(const uint8_t* __restrict__ st,
       load_sample(slots, qends, b0, B, B > 0 && ch0 * kRC < g.rows, sub);
   USHER_PROF_BEGIN
   for (long long u = 0; u < units; ++u) {
-    const long long n0 = group_of(u, blk.my_groups) * g.rows;
-    const int nrows = (int)min((long long)g.rows, g.N - n0);
-    const int s = ring_acquire(blk, g, st, stp, u, units, n0, nrows);
+    const Unit x = unit_at<kSeg>(g, u, blk.my_groups);
+    const long long n0 = x.n0;
+    const int nrows = x.nrows;
+    const int s = ring_acquire<kSeg>(blk, g, st, stp, ref, u, units, x);
     USHER_PROF_TICK(0)
     uint8_t* slot = blk.slot(g, s);
     int* red = blk.red + s * g.rows * 3;
+    // the unit's columns in uint4 words, and the reference row they meet
+    const int words = kSeg ? (x.w + 15) >> 4 : g.pitch >> 4;
+    const uint8_t* refs = kSeg ? blk.slot_ref(g, s) : blk.refs;
     if (fused) {
-      sweep_slot<true>(slot, blk.refs, red, g, nrows);
+      sweep_slot<true>(slot, refs, red, g, nrows, words);
     } else {
-      sweep_slot<false>(slot, blk.refs, red, g, nrows);
+      sweep_slot<false>(slot, refs, red, g, nrows, words);
     }
     USHER_PROF_TICK(1)
     __syncthreads();  // the slot is packed and its row sums are whole
@@ -695,7 +799,12 @@ score_entries_kernel(const uint8_t* __restrict__ st,
     if (fused && threadIdx.x < nrows * 3) {
       const int r = threadIdx.x / 3;
       const int which = threadIdx.x - r * 3;
-      sums_out[(size_t)which * g.N + n0 + r] = red[threadIdx.x];
+      int32_t* o = sums_out + (size_t)which * g.N + n0 + r;
+      if (kSeg && x.seg > 0) {
+        *o += red[threadIdx.x];
+      } else {
+        *o = red[threadIdx.x];
+      }
     }
     const int items = ((nrows + kRC - 1) / kRC) * B;
     for (int it0 = 0; it0 < items; it0 += n_groups) {
@@ -710,8 +819,8 @@ score_entries_kernel(const uint8_t* __restrict__ st,
       if (!act) ss.qend = 0;
       const int r0 = ch * kRC;
       int cs[kRC], ns[kRC];
-      entry_sums<kSpr, kRC>(slot + (size_t)r0 * g.pitch, g.pitch, slots, B, ss,
-                            sub, lanes, cs, ns);
+      entry_sums<kSpr, kRC, kSeg>(slot + (size_t)r0 * g.pitch, g.pitch, slots,
+                                  B, ss, sub, lanes, x.c0, x.w, cs, ns);
       if (act && sub == 0) {
         const int b = ss.b;
 #pragma unroll
@@ -725,8 +834,15 @@ score_entries_kernel(const uint8_t* __restrict__ st,
             } else {
               o = (size_t)n * B + b;
             }
-            score_t[o] = (fused ? red[r * 3] : base[n]) + cs[j];
-            nc_t[o] = (fused ? red[r * 3 + 1] : nc_base[n]) + ns[j];
+            int s0 = fused ? red[r * 3] : base[n];
+            int m0 = fused ? red[r * 3 + 1] : nc_base[n];
+            if (kSeg && x.seg > 0) {
+              // the row's base was added with its first segment
+              s0 = score_t[o] + (fused ? s0 : 0);
+              m0 = nc_t[o] + (fused ? m0 : 0);
+            }
+            score_t[o] = s0 + cs[j];
+            nc_t[o] = m0 + ns[j];
           }
         }
       }
@@ -777,8 +893,12 @@ struct Partial {
 // partial; parts are [4, gridDim.x, B] (best, cnt, q1, q2).  nodemeta is
 // [N, 4] int32: num_leaves, bfs_rank, node_num_mut (unused in the fused
 // form, which counts it in the sweep), flags = active | is_leaf << 1 |
-// is_root << 2.  Inactive rows are never valid and are not scored.
-template <int kRC>
+// is_root << 2.  Inactive rows are never valid and are not scored.  kSeg
+// (rows of several column segments, one row a group): the thread group
+// carries its row's score, num_common and (fused) branch-mutation count
+// across the row's segments and applies validity and the fold after the
+// last one.
+template <int kRC, bool kSeg>
 __global__ void __launch_bounds__(kThreads, 1)
 placement_partials_kernel(const uint8_t* __restrict__ st,
                           const uint8_t* __restrict__ stp,
@@ -789,9 +909,10 @@ placement_partials_kernel(const uint8_t* __restrict__ st,
                           const uint32_t* __restrict__ slots,
                           const int32_t* __restrict__ qends, Ring g, int B,
                           int lanes, int32_t* __restrict__ parts) {
+  static_assert(!kSeg || kRC == 1, "segmented rows are scored one at a time");
   extern __shared__ uint4 smem_raw[];
   const bool fused = ref != nullptr;
-  const Block blk(reinterpret_cast<uint8_t*>(smem_raw), g, fused);
+  const Block blk(reinterpret_cast<uint8_t*>(smem_raw), g, fused && !kSeg);
   const int n_groups = kThreads / lanes;
   const int grp = threadIdx.x / lanes;
   const int sub = threadIdx.x % lanes;
@@ -807,27 +928,34 @@ placement_partials_kernel(const uint8_t* __restrict__ st,
     }
     return;
   }
+  // units of a sample tile
+  const long long per_tile = kSeg ? blk.my_groups * g.nseg : blk.my_groups;
   const long long tiles = (B + n_groups - 1) / n_groups;
-  const long long units = tiles * blk.my_groups;
-  ring_begin(blk, g, st, stp, ref, units);
+  const long long units = tiles * per_tile;
+  ring_begin<kSeg>(blk, g, st, stp, ref, units);
   Partial part;
   part.reset();
   SampleSlots ss;
+  int acc_s = 0, acc_n = 0, acc_m = 0;  // kSeg: the row's carry
   for (long long u = 0; u < units; ++u) {
-    const long long gi = u % blk.my_groups;
-    const long long n0 = group_of(u, blk.my_groups) * g.rows;
-    const int nrows = (int)min((long long)g.rows, g.N - n0);
-    const int b = (int)(u / blk.my_groups) * n_groups + grp;
+    const long long gi = u % per_tile;
+    const Unit x = unit_at<kSeg>(g, u, blk.my_groups);
+    const long long n0 = x.n0;
+    const int nrows = x.nrows;
+    const int b = (int)(u / per_tile) * n_groups + grp;
     const bool act = b < B;
     // a new tile: the group's sample changes
     if (gi == 0) ss = load_sample(slots, qends, b, B, act, sub);
-    const int s = ring_acquire(blk, g, st, stp, u, units, n0, nrows);
+    const int s = ring_acquire<kSeg>(blk, g, st, stp, ref, u, units, x);
     uint8_t* slot = blk.slot(g, s);
     int* red = blk.red + s * g.rows * 3;
+    // the unit's columns in uint4 words, and the reference row they meet
+    const int words = kSeg ? (x.w + 15) >> 4 : g.pitch >> 4;
+    const uint8_t* refs = kSeg ? blk.slot_ref(g, s) : blk.refs;
     if (fused) {
-      sweep_slot<true>(slot, blk.refs, red, g, nrows);
+      sweep_slot<true>(slot, refs, red, g, nrows, words);
     } else {
-      sweep_slot<false>(slot, blk.refs, red, g, nrows);
+      sweep_slot<false>(slot, refs, red, g, nrows, words);
     }
     __syncthreads();  // the slot is packed and its row sums are whole
     for (int r0 = 0; r0 < nrows; r0 += kRC) {
@@ -840,18 +968,30 @@ placement_partials_kernel(const uint8_t* __restrict__ st,
       }
       if (!live) continue;  // the same for the whole block
       int cs[kRC], ns[kRC];
-      entry_sums<false, kRC>(slot + (size_t)r0 * g.pitch, g.pitch, slots, B,
-                             ss, sub, lanes, cs, ns);
+      entry_sums<false, kRC, kSeg>(slot + (size_t)r0 * g.pitch, g.pitch,
+                                   slots, B, ss, sub, lanes, x.c0, x.w, cs,
+                                   ns);
 #pragma unroll
       for (int j = 0; j < kRC; ++j) {
         if (!((live >> j) & 1u)) continue;
         const int r = r0 + j;
         const long long n = n0 + r;
-        const int score = (fused ? red[r * 3] : base[n]) + cs[j];
-        const int nc = (fused ? red[r * 3 + 1] : nc_base[n]) + ns[j];
         const int4 meta = __ldg(nodemeta + n);
+        int score = (fused ? red[r * 3] : base[n]) + cs[j];
+        int nc = (fused ? red[r * 3 + 1] : nc_base[n]) + ns[j];
+        int num_mut = fused ? red[r * 3 + 2] : meta.z;
+        if constexpr (kSeg) {
+          // base/nc_base count once, with the first segment
+          acc_s += score - (!fused && x.seg > 0 ? base[n] : 0);
+          acc_n += nc - (!fused && x.seg > 0 ? nc_base[n] : 0);
+          acc_m += fused ? num_mut : 0;
+          if (x.seg != g.nseg - 1) continue;
+          score = acc_s;
+          nc = acc_n;
+          num_mut = fused ? acc_m : meta.z;
+          acc_s = acc_n = acc_m = 0;
+        }
         const int flags = meta.w;
-        const int num_mut = fused ? red[r * 3 + 2] : meta.z;
         const bool leaf = (flags >> 1) & 1;
         const bool root = (flags >> 2) & 1;
         const bool hu = nc < num_mut;
@@ -862,8 +1002,8 @@ placement_partials_kernel(const uint8_t* __restrict__ st,
       }
     }
     ring_release(blk, g, s);
-    if (gi == blk.my_groups - 1) {
-      // the tile's last row group: every lane of the group holds the partial
+    if (gi == per_tile - 1) {
+      // the tile's last unit: every lane of the group holds the partial
       if (act && sub == 0) {
         out[b] = part.best;
         out[plane + b] = part.cnt;
@@ -902,29 +1042,37 @@ class DeviceGuard {
 
 // What the caller chose for a launch (placement_sparse.py::launch_plan).
 struct Plan {
-  int rows, stages, vec, lanes, grid;
+  int rows, stages, vec, lanes, grid, seg;
 };
 
 // The Ring of a plan and its dynamic shared memory; cudaErrorInvalidValue
 // for a plan the kernels do not take.
-cudaError_t make_ring(const void* st, const void* stp, long long N, int P,
-                      const Plan& plan, bool fused, Ring* ring, size_t* smem) {
-  const int pitch = (P + 15) & ~15;
-  const bool aligned = (P % 16) == 0 &&
-                       (reinterpret_cast<uintptr_t>(st) & 15u) == 0 &&
-                       (reinterpret_cast<uintptr_t>(stp) & 15u) == 0;
+cudaError_t make_ring(const void* st, const void* stp, const void* ref,
+                      long long N, int P, const Plan& plan, bool fused,
+                      Ring* ring, size_t* smem) {
+  const int seg = plan.seg;
+  const int nseg = seg > 0 && P > seg ? (P + seg - 1) / seg : 1;
+  const bool ref_in_stage = fused && nseg > 1;
+  const int pitch = ((nseg > 1 ? seg : P) + 15) & ~15;
+  const bool aligned =
+      (P % 16) == 0 && (reinterpret_cast<uintptr_t>(st) & 15u) == 0 &&
+      (reinterpret_cast<uintptr_t>(stp) & 15u) == 0 &&
+      (!ref_in_stage || (reinterpret_cast<uintptr_t>(ref) & 15u) == 0);
   const int lanes = plan.lanes;
   if (plan.rows < 1 || plan.rows > kMaxRows || plan.stages < 1 ||
       plan.stages > kMaxStages || plan.grid < 1 || lanes < 1 || lanes > 32 ||
       (lanes & (lanes - 1)) != 0 || (plan.vec && !aligned) ||
-      (!plan.vec && plan.stages != 1))
+      (!plan.vec && plan.stages != 1) ||
+      (nseg > 1 && (plan.rows != 1 || seg % 16 != 0)))
     return cudaErrorInvalidValue;
-  *ring = Ring{N, (N + plan.rows - 1) / plan.rows, P, pitch, plan.rows,
-               plan.stages, plan.vec};
-  *smem = (size_t)kHeader + (fused ? pitch : 0) +
-          (size_t)plan.stages * plan.rows * 2 * pitch;
+  const size_t stage =
+      (size_t)plan.rows * 2 * pitch + (ref_in_stage ? pitch : 0);
   // one mbarrier phase counts at most 2^20 - 1 bytes
-  if ((size_t)plan.rows * 2 * pitch >= (1u << 20)) return cudaErrorInvalidValue;
+  if (stage >= (1u << 20)) return cudaErrorInvalidValue;
+  *ring = Ring{N, (N + plan.rows - 1) / plan.rows, P, pitch, plan.rows,
+               plan.stages, plan.vec, nseg > 1 ? seg : P, nseg, (int)stage};
+  *smem = (size_t)kHeader + (fused && !ref_in_stage ? pitch : 0) +
+          (size_t)plan.stages * stage;
   return cudaSuccess;
 }
 
@@ -935,7 +1083,7 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-template <bool kSpr, bool kTiled, int kRC>
+template <bool kSpr, bool kTiled, int kRC, bool kSeg>
 cudaError_t launch_score_entries(const void* st, const void* stp,
                                  const void* ref, const void* base,
                                  const void* nc_base, const void* slots,
@@ -943,14 +1091,14 @@ cudaError_t launch_score_entries(const void* st, const void* stp,
                                  size_t smem, int B, const Plan& plan, int tb,
                                  long long n_pad, void* score_t, void* nc_t,
                                  void* sums_out, cudaStream_t stream) {
-  cudaError_t err = set_smem(score_entries_kernel<kSpr, kTiled, kRC>, smem);
+  auto kernel = score_entries_kernel<kSpr, kTiled, kRC, kSeg>;
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  score_entries_kernel<kSpr, kTiled, kRC>
-      <<<(unsigned)plan.grid, kThreads, smem, stream>>>(
-          (const uint8_t*)st, (const uint8_t*)stp, (const uint8_t*)ref,
-          (const int32_t*)base, (const int32_t*)nc_base,
-          (const uint32_t*)slots, (const int32_t*)qends, ring, B, plan.lanes,
-          tb, n_pad, (int32_t*)score_t, (int32_t*)nc_t, (int32_t*)sums_out);
+  kernel<<<(unsigned)plan.grid, kThreads, smem, stream>>>(
+      (const uint8_t*)st, (const uint8_t*)stp, (const uint8_t*)ref,
+      (const int32_t*)base, (const int32_t*)nc_base, (const uint32_t*)slots,
+      (const int32_t*)qends, ring, B, plan.lanes, tb, n_pad, (int32_t*)score_t,
+      (int32_t*)nc_t, (int32_t*)sums_out);
   return cudaGetLastError();
 }
 
@@ -968,17 +1116,37 @@ cudaError_t score_entries(const void* st, const void* stp, const void* ref,
     return cudaErrorInvalidValue;
   Ring ring;
   size_t smem;
-  cudaError_t err = make_ring(st, stp, N, P, plan, fused, &ring, &smem);
+  cudaError_t err = make_ring(st, stp, ref, N, P, plan, fused, &ring, &smem);
   if (err != cudaSuccess) return err;
   const bool chunked = plan.rows % 4 == 0;
-#define USHER_LAUNCH(SPR, RC)                                                 \
-  launch_score_entries<SPR, kTiled, RC>(st, stp, ref, base, nc_base, slots,   \
-                                        qends, ring, smem, B, plan, tb,       \
-                                        n_pad, score_t, nc_t, sums_out,       \
-                                        stream)
-  if (spr) return chunked ? USHER_LAUNCH(true, 4) : USHER_LAUNCH(true, 1);
-  return chunked ? USHER_LAUNCH(false, 4) : USHER_LAUNCH(false, 1);
+#define USHER_LAUNCH(SPR, RC, SEG)                                            \
+  launch_score_entries<SPR, kTiled, RC, SEG>(                                 \
+      st, stp, ref, base, nc_base, slots, qends, ring, smem, B, plan, tb,     \
+      n_pad, score_t, nc_t, sums_out, stream)
+  if (ring.nseg > 1)
+    return spr ? USHER_LAUNCH(true, 1, true) : USHER_LAUNCH(false, 1, true);
+  if (spr)
+    return chunked ? USHER_LAUNCH(true, 4, false) : USHER_LAUNCH(true, 1, false);
+  return chunked ? USHER_LAUNCH(false, 4, false) : USHER_LAUNCH(false, 1, false);
 #undef USHER_LAUNCH
+}
+
+template <int kRC, bool kSeg>
+cudaError_t launch_partials(const void* st, const void* stp, const void* ref,
+                            const void* base, const void* nc_base,
+                            const void* nodemeta, const void* slots,
+                            const void* qends, const Ring& ring, size_t smem,
+                            int B, const Plan& plan, void* parts,
+                            cudaStream_t stream) {
+  auto kernel = placement_partials_kernel<kRC, kSeg>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)plan.grid, kThreads, smem, stream>>>(
+      (const uint8_t*)st, (const uint8_t*)stp, (const uint8_t*)ref,
+      (const int32_t*)base, (const int32_t*)nc_base, (const int4*)nodemeta,
+      (const uint32_t*)slots, (const int32_t*)qends, ring, B, plan.lanes,
+      (int32_t*)parts);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -991,10 +1159,12 @@ extern "C" {
 // null selects the fused form (base/nc_base may then be null, and sums_out
 // [3, N] int32 receives base, nc_base and node_num_mut); with ref null the
 // caller gives base/nc_base and sums_out is not written.  rows, stages, vec,
-// lanes and grid are the caller's plan (placement_sparse.py::launch_plan).
-// Nothing is launched where there is nothing to write: without rows, or
-// without samples unless the row sums are asked for (a fused B1 call with
-// B == 0 still writes sums_out); B2 without rows writes the identity parts.
+// lanes, grid and seg are the caller's plan (placement_sparse.py::
+// launch_plan); seg is the columns of a segment, P or more where one segment
+// holds the row.  Nothing is launched where there is nothing to write:
+// without rows, or without samples unless the row sums are asked for (a
+// fused B1 call with B == 0 still writes sums_out); B2 without rows writes
+// the identity parts.
 
 // What a launch plan needs to know of `device`: its SM count, the threads of
 // a block, the dynamic shared memory a block may have, and the bytes of it
@@ -1014,11 +1184,11 @@ int usher_score_entries_T(const void* st, const void* stp, const void* ref,
                           const void* base, const void* nc_base,
                           const void* slots, const void* qends, long long N,
                           int P, int B, int rows, int stages, int vec,
-                          int lanes, int grid, int spr, void* score_t,
+                          int lanes, int grid, int seg, int spr, void* score_t,
                           void* nc_t, void* sums_out, int device,
                           void* stream) {
   if (N <= 0 || (B <= 0 && ref == nullptr)) return (int)cudaSuccess;
-  const Plan plan{rows, stages, vec, lanes, grid};
+  const Plan plan{rows, stages, vec, lanes, grid, seg};
   return (int)score_entries<false>(st, stp, ref, base, nc_base, slots, qends,
                                    N, P, B, plan, spr, 0, 0, score_t, nc_t,
                                    sums_out, device, (cudaStream_t)stream);
@@ -1029,12 +1199,12 @@ int usher_score_entries_3d(const void* st, const void* stp, const void* ref,
                            const void* base, const void* nc_base,
                            const void* slots, const void* qends, long long N,
                            int P, int B, int rows, int stages, int vec,
-                           int lanes, int grid, int spr, int tb,
+                           int lanes, int grid, int seg, int spr, int tb,
                            long long n_pad, void* score3, void* nc3,
                            void* sums_out, int device, void* stream) {
   if (N <= 0 || (B <= 0 && ref == nullptr)) return (int)cudaSuccess;
   if (tb <= 0 || n_pad < N) return (int)cudaErrorInvalidValue;
-  const Plan plan{rows, stages, vec, lanes, grid};
+  const Plan plan{rows, stages, vec, lanes, grid, seg};
   return (int)score_entries<true>(st, stp, ref, base, nc_base, slots, qends,
                                   N, P, B, plan, spr, tb, n_pad, score3, nc3,
                                   sums_out, device, (cudaStream_t)stream);
@@ -1045,8 +1215,9 @@ int usher_placement_partials(const void* st, const void* stp, const void* ref,
                              const void* base, const void* nc_base,
                              const void* slots, const void* qends, long long N,
                              int P, int B, int rows, int stages, int vec,
-                             int lanes, int grid, const void* nodemeta,
-                             void* parts, int device, void* stream) {
+                             int lanes, int grid, int seg,
+                             const void* nodemeta, void* parts, int device,
+                             void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (N < 0) return (int)cudaErrorInvalidValue;
   DeviceGuard guard(device);
@@ -1054,29 +1225,18 @@ int usher_placement_partials(const void* st, const void* stp, const void* ref,
   const bool fused = ref != nullptr;
   if (!fused && (base == nullptr || nc_base == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Plan plan{rows, stages, vec, lanes, grid};
+  const Plan plan{rows, stages, vec, lanes, grid, seg};
   Ring ring;
   size_t smem;
-  cudaError_t err = make_ring(st, stp, N, P, plan, fused, &ring, &smem);
+  cudaError_t err = make_ring(st, stp, ref, N, P, plan, fused, &ring, &smem);
   if (err != cudaSuccess) return (int)err;
-  const bool chunked = rows % 4 == 0;
-  err = chunked ? set_smem(placement_partials_kernel<4>, smem)
-                : set_smem(placement_partials_kernel<1>, smem);
-  if (err != cudaSuccess) return (int)err;
-#define USHER_LAUNCH(RC)                                                      \
-  placement_partials_kernel<RC><<<(unsigned)grid, kThreads, smem,             \
-                                  (cudaStream_t)stream>>>(                    \
-      (const uint8_t*)st, (const uint8_t*)stp, (const uint8_t*)ref,           \
-      (const int32_t*)base, (const int32_t*)nc_base, (const int4*)nodemeta,   \
-      (const uint32_t*)slots, (const int32_t*)qends, ring, B, lanes,          \
-      (int32_t*)parts)
-  if (chunked) {
-    USHER_LAUNCH(4);
-  } else {
-    USHER_LAUNCH(1);
-  }
+#define USHER_LAUNCH(RC, SEG)                                                 \
+  launch_partials<RC, SEG>(st, stp, ref, base, nc_base, nodemeta, slots,     \
+                           qends, ring, smem, B, plan, parts,                \
+                           (cudaStream_t)stream)
+  if (ring.nseg > 1) return (int)USHER_LAUNCH(1, true);
+  return (int)(rows % 4 == 0 ? USHER_LAUNCH(4, false) : USHER_LAUNCH(1, false));
 #undef USHER_LAUNCH
-  return (int)cudaGetLastError();
 }
 
 #ifdef USHER_PROFILE

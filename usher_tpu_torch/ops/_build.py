@@ -30,8 +30,8 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # name -> argtypes of every C entry point in csrc/ (each returns cudaError_t)
 _IP = ctypes.POINTER(ctypes.c_int)
-# the launch plan of the scoring kernels: rows, stages, vec, lanes, grid
-_PLAN = [_I, _I, _I, _I, _I]
+# the launch plan of the scoring kernels: rows, stages, vec, lanes, grid, seg
+_PLAN = [_I, _I, _I, _I, _I, _I]
 SIGNATURES = {
     "usher_launch_limits": [_I, _IP, _IP, _IP, _IP],
     "usher_score_entries_T":

@@ -48,11 +48,13 @@ per 32-bit word, for the three row sums, which therefore cost no second pass
 over device memory.  Four slots of a sample (a quad of the slot table) are
 scored at once with byte-parallel arithmetic.  ``launch_plan`` chooses rows
 per group, ring stages, lanes per sample and the grid from the shapes and
-the device's limits.  ptxas (sm_90a, CUDA 12.8, 1,024 threads a block, so at
-most 64 registers a thread): the B1 kernel 62 registers where a stage holds
-fewer than four rows and 64 where it holds more, no spills, in each of its
-spr and tiled instantiations; the B2 kernel 64 registers with 12 to 92 bytes
-spilt.
+the device's limits; where one row of st and stp (and ref) does not fit a
+stage, a row is cut into column segments that the kernels score one after
+another and add up, so any position width is taken.  ptxas (sm_90a, CUDA
+12.8, 1,024 threads a block, so at most 64 registers a thread): the B1
+kernel 62 registers where a stage holds fewer than four rows and 64 where it
+holds more or holds a column segment, no spills, in each of its spr and
+tiled instantiations; the B2 kernel 64 registers with 8 to 124 bytes spilt.
 
 Each kernel has a plain PyTorch twin (``*_plain``) built from column gathers
 ``st[:, pos_chunk]``, chunked over the batch; ``row_reductions`` is the
@@ -63,8 +65,7 @@ back from one to the other; each counts its kernel launches in
 ``<wrapper>.launches`` (``score_entries_T.launches`` counts every B1 launch,
 the fused ones included, and ``score_entries_T.launches_spr`` the spr=True
 ones apart).  The kernels read raw pointers, so a wrapper raises on a CUDA
-tensor that is not contiguous or lies on another device than ``st``, and on
-a position axis too wide for a block's shared memory.
+tensor that is not contiguous or lies on another device than ``st``.
 """
 
 from __future__ import annotations
@@ -305,11 +306,16 @@ H100 = Limits(sms=132, threads=1024, smem_max=232448, smem_header=2048)
 class Plan(NamedTuple):
     """How a launch cuts st/stp [N, P] and the batch (the kernels' source
     note says what each choice does)."""
-    rows: int     # node rows of a row group (one ring stage)
+    rows: int     # node rows of a row group
     stages: int   # ring stages
     vec: int      # 1: asynchronous bulk copies fill the ring; 0: thread copies
     lanes: int    # lanes of a warp that split one sample's K slots
     grid: int     # persistent blocks
+    seg: int      # columns of a segment; P where one segment holds the row
+
+    def segments(self, P: int) -> int:
+        """Column segments of a row of P columns."""
+        return -(-P // self.seg) if self.seg and P > self.seg else 1
 
 
 def launch_plan(P: int, B: int, K: int, fused: bool, aligned: bool = True,
@@ -317,28 +323,36 @@ def launch_plan(P: int, B: int, K: int, fused: bool, aligned: bool = True,
                 limits: Limits = H100) -> Plan:
     """The plan of a B1 launch (B2 with per_sample_state) over P columns and
     B samples of K slots.  A stage holds ``rows`` rows of st and of stp, a
-    fused launch also the reference row; up to ``MAX_STAGES`` stages share what the
-    header leaves of the block's shared memory, a multiple of ``ROW_CHUNK``
-    rows each where that many fit.  Bulk copies need P % 16 == 0 and aligned
-    bases; otherwise one stage that the threads fill.  Lanes per sample: as
-    many as give every (row chunk, sample) item of a stage a thread group in
-    one pass, while a lane still walks ``SLOTS_PER_LANE`` slots (below that
-    the shuffles and the per-item bookkeeping cost more than the lanes
-    save); B2 keeps a sample's partial in one thread group for the whole
-    launch, so it takes the most lanes that still give every sample a
-    group."""
+    fused launch also the reference row; up to ``MAX_STAGES`` stages share
+    what the header leaves of the block's shared memory, a multiple of
+    ``ROW_CHUNK`` rows each where that many fit.  Bulk copies need P % 16 ==
+    0 and aligned bases; otherwise one stage that the threads fill.  Where
+    not even one row of st and stp (and ref) fits, a row is cut into
+    segments of equal width, a multiple of 16 columns: a stage then holds
+    one row's segment of st, of stp and (fused) of ref, and the kernels add
+    up a row's segments.  Lanes per sample: as many as give every (row
+    chunk, sample) item of a stage a thread group in one pass, while a lane
+    still walks ``SLOTS_PER_LANE`` slots (below that the shuffles and the
+    per-item bookkeeping cost more than the lanes save); B2 keeps a sample's
+    partial in one thread group for the whole launch, so it takes the most
+    lanes that still give every sample a group."""
     pitch = (P + 15) // 16 * 16
     pairs = (limits.smem_max - limits.smem_header
              - (pitch if fused else 0)) // (2 * pitch)
-    if pairs < 1:
-        raise ValueError(f"P={P} is too wide for the scoring kernels: a row "
-                         f"of st and of stp{' and ref' if fused else ''} "
-                         f"must fit {limits.smem_max} bytes of shared memory")
     vec = int(aligned and P % 16 == 0)
-    stages = min(MAX_STAGES, pairs) if vec else 1
-    per_stage = pairs // stages
-    rows = (min(MAX_ROWS, per_stage // ROW_CHUNK * ROW_CHUNK)
-            if per_stage >= ROW_CHUNK else per_stage)
+    seg = P
+    if pairs >= 1:
+        stages = min(MAX_STAGES, pairs) if vec else 1
+        per_stage = pairs // stages
+        rows = (min(MAX_ROWS, per_stage // ROW_CHUNK * ROW_CHUNK)
+                if per_stage >= ROW_CHUNK else per_stage)
+    else:
+        stages = MAX_STAGES if vec else 1
+        rows = 1
+        room = (limits.smem_max - limits.smem_header) // stages
+        widest = room // (3 if fused else 2) // 16 * 16
+        nseg = -(-P // widest)
+        seg = (-(-P // nseg) + 15) // 16 * 16
     # thread groups that have an item in one pass over a stage: B2 keeps a
     # sample's partial in one group for the whole launch
     items = B if per_sample_state else \
@@ -347,7 +361,7 @@ def launch_plan(P: int, B: int, K: int, fused: bool, aligned: bool = True,
     while (lanes < 32 and items * lanes * 2 <= limits.threads
            and K >= SLOTS_PER_LANE * lanes * 2):
         lanes *= 2
-    return Plan(rows, stages, vec, lanes, limits.sms)
+    return Plan(rows, stages, vec, lanes, limits.sms, seg)
 
 
 @functools.lru_cache(maxsize=None)
@@ -397,7 +411,11 @@ def _launch_args(st, stp, ref, base, nc_base, pos, gval, kmiss,
                        device_limits(tail[0]))
     table, qend = _slot_words(P, ref, pos, gval, kmiss)
     if fused:
-        keep = (ref.contiguous(), None, None, table, qend)
+        ref = ref.contiguous()
+        if ref.data_ptr() % 16:
+            # a segmented launch copies ref's segments with bulk copies
+            ref = ref.clone()
+        keep = (ref, None, None, table, qend)
     else:
         keep = (None, base.to(torch.int32).contiguous(),
                 nc_base.to(torch.int32).contiguous(), table, qend)
