@@ -73,6 +73,30 @@ these phases and fails (non-zero exit) if any of them fails:
                    pre-pass, device scoring calls, host corrections,
                    surgery, newick), samples/s, the full host re-score
                    count and the peak device memory
+  optimize_fixture matOptimize -N 2 -r 4 (usher_tpu_torch/cli/
+                   matoptimize_cli.py) on the pb fixture_e2e built, dense,
+                   --spr-backend big, --stream-states, --mesh-devices 4 and
+                   big with --mesh-devices 4, and -E, on the card and, in a
+                   subprocess, with USHER_TPU_PLATFORM=cpu: every output pb,
+                   the EPP newick and epps_dump byte-equal; parsimony 500 ->
+                   at most 494; X3, X11, X12 and X7 (both of its paths and
+                   the mesh) ran on cuda
+  optimize_realistic
+                   matOptimize -N 1 -r 4 -z 0.002 -y 0 (~200 sources) on
+                   the realistic pb, dense and --spr-backend big (the
+                   streamed run is left out for time): byte-equal pbs;
+                   per mode the CLI wall, the optimizer's spans
+                   (initial FS pass, find_moves, FS patch, final min-back
+                   pass), each program's ms a call (X3 a 512-position chunk,
+                   X11 and X7 a source chunk), the chunks X7 took on the
+                   device and on host events, and the peak device memory
+  optimize_pandemic
+                   bench.py's pandemic_optimize shape on bigmat_pandemic's
+                   1M-node BigMAT: 2,048 sources, chunks of 512, radius 8,
+                   K 32 through X7's device expansion (interval_spr_dev),
+                   == X7 on host events on the card (every source) == a
+                   CPU-tensor run (the first 16); ms a chunk, source nodes
+                   searched a minute, peak device memory
 
 Kernel against plain comparisons are exact (tolerance 0: the arithmetic is
 integer).  Every comparison covers the kernel with caller-given row sums and
@@ -87,7 +111,10 @@ B1 and B2 per shard: mesh B1's launches are the B1 kernel's there) and
 the BigMAT path (bigmat_fixture,
 bigmat_realistic and bigmat_pandemic's scoring calls, kernel B1-spr in the
 column path), and the --pb-direct path (direct_fixture and direct_realistic),
-which must launch neither B1 nor B2.  B1-3d has no caller on any path (its TPU counterpart has
+which must launch neither B1 nor B2, and the matOptimize path
+(optimize_fixture, optimize_realistic and optimize_pandemic), whose device
+programs are torch ops and which must launch none of the five.  B1-3d has
+no caller on any path (its TPU counterpart has
 none either), so its main-path count is 0 and only the comparisons launch
 it.  A kernel's bound is the larger of the bytes it must move (inputs read
 once, outputs written once) over the card's published memory rate and its
@@ -208,6 +235,17 @@ def score_bounds(N, P, pos, sweep=None):
             "B2": bound(b2[0] + 8 * N, b2[1]),
             "B1 fused": bound(b1[0] + P + 12 * N, b1[1] + sweep),
             "B2 fused": bound(b2[0] + P, b2[1] + sweep)}
+
+
+def score_bounds_3d(N, P, pos, tb):
+    """Bound of B1-3d: B1's inputs and work with caller-given row sums,
+    its two outputs written as ceil(B / tb) tiles of [N, tb] int32 (the
+    last tile's padding samples count as written)."""
+    B, K = pos.shape
+    valid = int(((pos >= 0) & (pos < P)).sum())
+    read = 2 * N * P + 4 * 7 * -(-K // 4) * B + 4 * B + 8 * N
+    tiles = -(-B // tb) * tb
+    return bound(read + 8 * N * tiles, N * valid * OPS_PER_TRIPLE + 2 * N * B)
 
 
 def executed_sweep_ms(st, stp, ref):
@@ -371,8 +409,9 @@ class Kernels:
                           None)}
         self.ms[phase] = t
         N, P = b1[0].shape
-        self.bounds[phase] = score_bounds(N, P, b1[5].cpu().numpy(),
-                                          sweep_ops(*b1[:3]))
+        pos = b1[5].cpu().numpy()
+        self.bounds[phase] = dict(score_bounds(N, P, pos, sweep_ops(*b1[:3])),
+                                  **{"B1-3d": score_bounds_3d(N, P, pos, tb)})
         t["sweep_executed_ms"] = executed_sweep_ms(*b1[:3])
         return t
 
@@ -621,6 +660,7 @@ def phase_kernel_synth(kern, name, mat, n_samples, n_entries, seed, device):
             "B1_fused_plain_ms": t["B1 fused"][1],
             "B2_fused_ms": t["B2 fused"][0],
             "B1_bound": bounds["B1"], "B2_bound": bounds["B2"],
+            "B1_3d_bound": bounds["B1-3d"],
             "B1_fused_bound": bounds["B1 fused"],
             "B2_fused_bound": bounds["B2 fused"],
             "sweep_executed_ms": t["sweep_executed_ms"]}
@@ -1042,7 +1082,9 @@ def phase_mesh_kernel(kern, mat, n_samples, n_entries, seed, device):
     kern.ms["mesh_kernel"] = t
     kern.bounds["mesh_kernel"] = dict(
         score_bounds(N, P, pos_h, sweep_ops(*whole[:3])),
-        reductions=reductions_bound(N, P))
+        reductions=reductions_bound(N, P),
+        one_shard_B1=score_bounds(s00[0].shape[0], P,
+                                  s00[3].cpu().numpy())["B1"])
     shard_shape = [int(x) for x in (*s00[0].shape, s00[3].shape[0])]
     devices = sorted({str(d) for d in mesh.devices.reshape(-1).tolist()})
     del whole, sh, b1, b2, shard_b1, s00
@@ -1050,6 +1092,7 @@ def phase_mesh_kernel(kern, mat, n_samples, n_entries, seed, device):
     return dict(t, N=N, P=P, B=n_samples, K=n_entries,
                 mesh=mesh.shape, devices=devices, shard_NPB=shard_shape,
                 mesh_b1_bound=kern.bounds["mesh_kernel"]["B1 fused"],
+                one_shard_b1_bound=kern.bounds["mesh_kernel"]["one_shard_B1"],
                 reductions_bound=kern.bounds["mesh_kernel"]["reductions"])
 
 
@@ -1494,7 +1537,10 @@ def same_arrays(what, got, want):
             raise AssertionError(f"{what}: outputs differ")
 
 
-def phase_bigmat_pandemic(kern, device, n_nodes=1_000_000, n_sites=30_000):
+def phase_bigmat_pandemic(kern, device, keep, n_nodes=1_000_000,
+                          n_sites=30_000):
+    """The phase of the module docstring; leaves its BigMAT in keep["big"]
+    for optimize_pandemic."""
     ps = kern.ps
     rng = np.random.default_rng(11)
     B, K, K_slots, B_x8, B_cols = 1024, 24, 32, 256, 64
@@ -1592,6 +1638,7 @@ def phase_bigmat_pandemic(kern, device, n_nodes=1_000_000, n_sites=30_000):
             del st_c, stp_c
         del b1, args
     torch.cuda.empty_cache()
+    keep["big"] = big
     ms, plain_ms = kern.ms["bigmat_pandemic"]["B1-spr"]
     return {"N": big.N, "P": big.P, "mutations": int(len(big.mut_col)),
             "max_depth": big.max_depth, "max_occupancy": int(occ.max()),
@@ -1612,6 +1659,321 @@ def phase_bigmat_pandemic(kern, device, n_nodes=1_000_000, n_sites=30_000):
             "b1_spr_bound": kern.bounds["bigmat_pandemic"],
             "max_abs_err": {"B1-spr": kern.err["B1-spr"],
                             "B1": kern.err["B1"]}}
+
+
+# --- matOptimize (optimize/, cli/matoptimize_cli.py) -----------------------
+
+# (module, function, name, the argument whose shape is recorded: the leaf
+# masks [N, S] of X3, the subtree masks g [B, P] of X11 and X12, the entry
+# slots pos [B, K] of X7's device path, add0 [B] of its host path)
+OPT_PROGRAMS = (("fitch", "_fs_chunk", "X3", 0),
+                ("fitch", "_min_back_chunk", "X3 min-back", 0),
+                ("spr", "_score_moves", "X11", 4),
+                ("epp", "_tie_matrix", "X12", 4),
+                ("interval", "interval_spr_dev", "X7 device", 6),
+                ("interval", "interval_spr", "X7 host", 11))
+
+
+@contextlib.contextmanager
+def optimize_spies(rec):
+    """Record each call of the slice's device programs (X3, X11, X12, X7),
+    from outside the package: the device of its first tensor argument, its
+    synchronized wall ms and the shape of its OPT_PROGRAMS argument; and
+    after each BigMoveFinder.find_moves the paths its chunks took."""
+    from usher_tpu_torch.ops import interval
+    from usher_tpu_torch.optimize import epp, fitch, spr, spr_big
+    mods = {"fitch": fitch, "spr": spr, "epp": epp, "interval": interval}
+    saved = []
+
+    def wrap(orig, name, arg):
+        def spy(*a, **k):
+            first = next(x for x in a if isinstance(x, torch.Tensor))
+            cuda = first.device.type == "cuda"
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            if cuda:
+                torch.cuda.synchronize()
+            r = rec.setdefault(name, {"ms": [], "devices": [], "shapes": []})
+            r["ms"].append((time.perf_counter() - t0) * 1e3)
+            if first.device.type not in r["devices"]:
+                r["devices"].append(first.device.type)
+            r["shapes"].append(list(a[arg].shape))
+            return out
+        return spy
+
+    for mod, attr, name, arg in OPT_PROGRAMS:
+        orig = getattr(mods[mod], attr)
+        saved.append((mods[mod], attr, orig))
+        setattr(mods[mod], attr, wrap(orig, name, arg))
+    find = spr_big.BigMoveFinder.find_moves
+
+    def find_spy(self, *a, **k):
+        out = find(self, *a, **k)
+        paths = rec.setdefault("X7 paths", {})
+        for p, n in self.paths.items():
+            paths[p] = paths.get(p, 0) + n
+        return out
+
+    spr_big.BigMoveFinder.find_moves = find_spy
+    try:
+        yield
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+        spr_big.BigMoveFinder.find_moves = find
+
+
+def spy_summary(rec):
+    """Per program: calls, devices, median and total ms, the shapes seen."""
+    out = {}
+    for name, r in rec.items():
+        if name == "X7 paths":
+            out[name] = dict(r)
+            continue
+        shapes = sorted({tuple(s) for s in r["shapes"]})
+        out[name] = {"calls": len(r["ms"]), "devices": r["devices"],
+                     "median_ms": statistics.median(r["ms"]),
+                     "total_ms": sum(r["ms"]),
+                     "shapes": [list(s) for s in shapes[:4]]}
+    return out
+
+
+def on_cuda_only(rec, names):
+    """Fails unless each named program ran, and ran on cuda only."""
+    for name in names:
+        devs = rec.get(name, {}).get("devices")
+        if devs != ["cuda"]:
+            raise AssertionError(f"{name} ran on {devs}, expected ['cuda']")
+
+
+def run_opt(argv):
+    from usher_tpu_torch.cli.matoptimize_cli import main
+    rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"matOptimize {argv} returned {rc}")
+
+
+CPU_OPT = """
+import sys
+from usher_tpu_torch.cli.matoptimize_cli import main
+for argv in {runs!r}:
+    if main(argv) != 0:
+        sys.exit(1)
+"""
+
+
+def phase_optimize_fixture(built_pb, card):
+    """matOptimize -N 2 -r 4 on the pb fixture_e2e built, dense, with
+    --spr-backend big, --stream-states, --mesh-devices 4 and big with
+    --mesh-devices 4, and -E, on the card and (in a subprocess) on the CPU:
+    every output byte-equal, and parsimony 500 -> at most 494."""
+    from usher_tpu_torch.io.pbio import load_mat_pb
+    out = os.path.join(WORK, "optimize_fixture")
+    os.makedirs(out, exist_ok=True)
+    mesh = ["--mesh-devices", str(MESH_SHARDS)]
+    modes = {"dense": [], "big": ["--spr-backend", "big"],
+             "stream": ["--stream-states"], "mesh": mesh,
+             "big_mesh": ["--spr-backend", "big"] + mesh}
+
+    def runs(plat):
+        r = [["-i", built_pb, "-o", os.path.join(out, f"{plat}_{m}.pb"),
+              "-N", "2", "-r", "4"] + flags for m, flags in modes.items()]
+        os.makedirs(os.path.join(out, f"{plat}_E"), exist_ok=True)
+        return r + [["-i", built_pb, "-o", os.path.join(out, "x.pb"), "-E",
+                     os.path.join(out, f"{plat}_E", "epp.nwk"), "-r", "4"]]
+
+    rec = {}
+    t0 = time.perf_counter()
+    with optimize_spies(rec):
+        for argv in runs("cuda"):
+            run_opt(argv)
+    cuda_s = time.perf_counter() - t0
+    on_cuda_only(rec, ("X3", "X3 min-back", "X11", "X12", "X7 device",
+                       "X7 host"))
+    if not rec["X7 paths"].get("mesh"):
+        raise AssertionError("no X7 chunk went over the batch mesh")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", CPU_OPT.format(runs=runs("cpu"))],
+                   env=dict(os.environ, USHER_TPU_PLATFORM="cpu",
+                            PYTHONPATH=REPO), check=True, timeout=900,
+                   stdout=subprocess.DEVNULL)
+    cpu_s = time.perf_counter() - t0
+    pbs = [os.path.join(out, f"{p}_{m}.pb") for p in ("cuda", "cpu")
+           for m in modes]
+    same_files(out, out, [(os.path.basename(pbs[0]), os.path.basename(p))
+                          for p in pbs[1:]])
+    same_files(os.path.join(out, "cuda_E"), os.path.join(out, "cpu_E"),
+               [("epp.nwk", "epp.nwk"), ("epps_dump", "epps_dump")])
+    before = load_mat_pb(built_pb).get_parsimony_score()
+    after = load_mat_pb(pbs[0]).get_parsimony_score()
+    if before != 500 or after > 494:
+        raise AssertionError(f"parsimony {before} -> {after}, expected "
+                             "500 -> at most 494")
+    return {"card": card, "parsimony": [before, after],
+            "outputs": f"{len(pbs)} pbs byte-equal ("
+                       + ", ".join(modes) + "; cuda and cpu); -E newick "
+                       "and epps_dump equal on cuda and cpu",
+            "cuda_runs_s": cuda_s, "cpu_runs_s": cpu_s,
+            "programs": spy_summary(rec)}
+
+
+def phase_optimize_realistic(pb, card):
+    """matOptimize -N 1 -r 4 -z 0.002 -y 0 on the realistic pb (100,000
+    nodes x 30,000 sites, ~200 sources), dense and with --spr-backend big:
+    byte-equal output pbs; per mode the CLI wall, the optimizer's spans,
+    the programs' ms and the peak device memory.  Each run takes 85-115 s
+    on the card (host bound); the streamed run (~115 s) is left out to keep
+    the script near ten minutes, and optimize_fixture runs it on the
+    card."""
+    modes = {"dense": [], "big": ["--spr-backend", "big"]}
+    from usher_tpu_torch.utils.instrument import Instrumentor
+    out = os.path.join(WORK, "optimize_realistic")
+    os.makedirs(out, exist_ok=True)
+    inst = Instrumentor.get()
+    res = {"card": card}
+    for m, flags in modes.items():
+        rec = {}
+        trace = os.path.join(out, f"trace_{m}.json")
+        torch.cuda.reset_peak_memory_stats()
+        inst.begin_session(trace)
+        t0 = time.perf_counter()
+        try:
+            with optimize_spies(rec):
+                run_opt(["-i", pb, "-o", os.path.join(out, f"{m}.pb"),
+                         "-N", "1", "-r", "4", "-z", "0.002", "-y", "0"]
+                        + flags)
+        finally:
+            inst.end_session()
+        wall = time.perf_counter() - t0
+        on_cuda_only(rec, ("X3", "X3 min-back")
+                     + (("X11",) if m == "dense" else ("X7 device",)))
+        stages = stage_seconds(trace)
+        progs = spy_summary(rec)
+        res[m] = {"cli_s": wall,
+                  "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "spans_s": {k: round(v, 3) for k, v in stages.items()},
+                  "programs": progs}
+        if m != "dense" and not rec.get("X7 paths", {}).get("device"):
+            raise AssertionError(f"{m}: no X7 chunk took the device path")
+        log(f"  optimize_realistic {m}: {json.dumps(res[m])}")
+    names = [f"{m}.pb" for m in modes]
+    same_files(out, out, [(names[0], n) for n in names[1:]])
+    res["outputs"] = "byte-equal pbs: " + ", ".join(modes)
+    return res
+
+
+def pandemic_chunk(big, idxs, K):
+    """bench.py's pandemic_optimize chunk: each source's own branch
+    mutations (up to K) as its deviation entries, its ancestor-interval
+    count events and its DFS rows: (pos, gval [B, K], cnt, src [4, B])."""
+    B = len(idxs)
+    pos = np.full((B, K), big.P, np.int32)
+    gval = np.zeros((B, K), np.uint8)
+    src = np.zeros((4, B), np.int32)
+    anc = []
+    for b, si in enumerate(idxs.tolist()):
+        lo, hi = int(big.mut_ptr[si]), int(big.mut_ptr[si + 1])
+        k = min(K, hi - lo)
+        pos[b, :k] = big.mut_col[lo:lo + k]
+        gval[b, :k] = big.mut_mut[lo:lo + k]
+        src[:, b] = (big.level[si], big.dfs_of[si], big.dfs_end_of[si],
+                     big.dfs_of[int(big.parent[si])])
+        p = int(big.parent[si])
+        while True:
+            anc.append((big.dfs_of[p], big.dfs_end_of[p], b))
+            if p == int(big.parent[p]):
+                break
+            p = int(big.parent[p])
+    ar = np.asarray(anc, np.int32)
+    cnt = (np.r_[ar[:, 0], ar[:, 1]], np.r_[ar[:, 2], ar[:, 2]],
+           np.r_[np.ones(len(ar), np.int32), -np.ones(len(ar), np.int32)])
+    return pos, gval, cnt, src
+
+
+def phase_optimize_pandemic(big, card, n_srcs=2048, chunk=512, radius=8,
+                            K=32):
+    """bench.py's pandemic_optimize shape on the 1M-node BigMAT of
+    bigmat_pandemic: 2,048 sources in chunks of 512, radius 8, K 32,
+    through X7's device expansion (interval_spr_dev), held against X7 over
+    host-expanded events on the card for every source and against a
+    CPU-tensor run of interval_spr_dev for the first 16."""
+    from usher_tpu_torch.ops import interval as iv
+    rng = np.random.default_rng(1234)
+    sources = rng.integers(1, big.N, size=n_srcs)
+    meta = big._dfs_meta(spr=True)
+    keys = ("num_mut", "is_root", "active", "num_leaves", "bfs_rank",
+            "level")
+    csc = big._csc_dev()
+    mc = int(np.diff(big.csc_ptr).max())
+    t = big._t
+
+    def dev_call(pos, gval, cnt, src, on=None):
+        d = on or big.device
+        m = meta if on is None else {k: v.to(d) for k, v in meta.items()}
+        c = csc if on is None else [x.to(d) for x in csc]
+        return iv.interval_spr_dev(
+            *c, t(pos, d), t(gval, d), *(t(a, d) for a in cnt),
+            m["base"], m["nc_base"], *(m[k] for k in keys),
+            *(t(a, d) for a in src), radius, big.N, len(pos), mc)
+
+    dev_call(*pandemic_chunk(big, sources[:chunk], K))      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chunks, chunk_ms, host_prep_ms, results = [], [], [], []
+    t_all = time.perf_counter()
+    for c0 in range(0, n_srcs, chunk):
+        t0 = time.perf_counter()
+        chunks.append(pandemic_chunk(big, sources[c0:c0 + chunk], K))
+        t1 = time.perf_counter()
+        out = dev_call(*chunks[-1])
+        results.append(torch.stack([o.to(torch.int32) for o in out]).cpu())
+        t2 = time.perf_counter()
+        host_prep_ms.append((t1 - t0) * 1e3)
+        chunk_ms.append((t2 - t1) * 1e3)
+    total_s = time.perf_counter() - t_all
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # host-expanded events (interval_spr) on the card, every source
+    host_ms = []
+    for ch, want in zip(chunks, results):
+        pos, gval, cnt, src = ch
+        t0 = time.perf_counter()
+        *ev, add0 = big._events(pos, gval, np.zeros(pos.shape, bool),
+                                spr=True)
+        got = iv.interval_spr(
+            *(t(a) for a in iv.pad_events(*ev[:3], big.N)),
+            *(t(a) for a in iv.pad_events(*ev[3:6], big.N)),
+            *(t(a) for a in cnt), meta["base"], meta["nc_base"],
+            t(add0.astype(np.int32)), *(meta[k] for k in keys),
+            *(t(a) for a in src), radius, big.N, len(pos))
+        got = torch.stack([o.to(torch.int32) for o in got]).cpu()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.equal(got, want):
+            raise AssertionError("X7 device expansion != host events")
+    # a CPU-tensor run on the first 16 sources
+    pos, gval, cnt, src = pandemic_chunk(big, sources[:16], K)
+    t0 = time.perf_counter()
+    cpu = torch.stack([o.to(torch.int32) for o in dev_call(
+        pos, gval, cnt, src, on=torch.device("cpu"))])
+    cpu_s = time.perf_counter() - t0
+    if not torch.equal(cpu, results[0][:, :16]):
+        raise AssertionError("X7 on the card != X7 on CPU tensors")
+    with_dest = int(sum(int((r[0] < (1 << 29)).sum()) for r in results))
+    if any(x.device.type != "cuda" for x in (*csc, *meta.values())):
+        raise AssertionError("X7's inputs were not on cuda")
+    return {"card": card, "N": big.N, "P": big.P, "sources": n_srcs,
+            "chunk": chunk, "radius": radius, "K": K, "mc": mc,
+            "chunk_ms": chunk_ms, "ms_per_chunk": statistics.median(chunk_ms),
+            "host_prep_ms": host_prep_ms,
+            "nodes_searched_per_min": n_srcs / total_s * 60,
+            "device_nodes_per_min": n_srcs / sum(chunk_ms) * 6e4,
+            "peak_device_gb": peak_gb,
+            "host_events_ms_per_chunk": statistics.median(host_ms),
+            "cpu_16_sources_s": cpu_s,
+            "sources_with_a_destination": with_dest,
+            "checks": "device expansion == host events (2,048 sources, on "
+                      "the card) == CPU tensors (first 16)"}
 
 
 def main() -> int:
@@ -1705,7 +2067,9 @@ def main() -> int:
     kern.reset_counts()
     phase("bigmat_fixture", phase_bigmat_fixture)
     phase("bigmat_realistic", phase_bigmat_realistic, pb, vcf, out_dir, 64)
-    pandemic = phase("bigmat_pandemic", phase_bigmat_pandemic, kern, device)
+    keep = {}
+    pandemic = phase("bigmat_pandemic", phase_bigmat_pandemic, kern, device,
+                     keep)
     big_counts = pandemic["launches"]
     # ----------------------------------------------------------------------
 
@@ -1718,6 +2082,20 @@ def main() -> int:
           out_dir, 1024, 64)
     direct_counts = kern.counts()
     log(f"--pb-direct path launches: {json.dumps(direct_counts)}")
+    # ----------------------------------------------------------------------
+
+    # --- the matOptimize path: the counters cover its three phases, which --
+    # --- score with torch ops (X3, X11, X7, X12) and launch none of the ----
+    # --- five kernels --------------------------------------------------------
+    kern.reset_counts()
+    phase("optimize_fixture", phase_optimize_fixture,
+          os.path.join(WORK, "fixture", "out.pb"), smi)
+    phase("optimize_realistic", phase_optimize_realistic, pb, smi)
+    phase("optimize_pandemic", phase_optimize_pandemic, keep.pop("big"), smi)
+    opt_counts = kern.counts()
+    log(f"matOptimize path launches: {json.dumps(opt_counts)}")
+    if any(opt_counts.values()):
+        raise AssertionError(f"matOptimize path: launches {opt_counts}")
     # ----------------------------------------------------------------------
 
     for banned in ("jax", "jaxlib", "usher_tpu"):
@@ -1800,12 +2178,15 @@ def main() -> int:
               kern.bounds["mesh_kernel"]["B1 fused"],
               shape="mesh_kernel (2 x 2 shards, one fused launch a shard; "
                     "the bound is the unsharded fused call's)",
+              one_shard_ms=mesh_ms["one_shard_b1_kernel_ms"],
+              one_shard_bound_ms=kern.bounds["mesh_kernel"][
+                  "one_shard_B1"]["bound_ms"],
               main_shapes=mesh_real["main_shapes"],
               wrapper="usher_tpu_torch/parallel/mesh.py"),
         entry("B1-3d score_entries_3d",
               "usher_tpu/ops/placement_pallas.py:300",
               counts["B1-3d"] + mesh_counts["B1-3d"] + big_counts["B1-3d"],
-              kern.err["B1-3d"], *genome_ms["B1-3d"], genome_bound["B1"],
+              kern.err["B1-3d"], *genome_ms["B1-3d"], genome_bound["B1-3d"],
               shape="kernel_genome",
               note="no caller on any path, as in the JAX package"),
     ]

@@ -17,7 +17,6 @@ from usher_tpu.io.newick import write_newick
 from usher_tpu.placement.big_engine import BigPlacementEngine as JEngine
 from usher_tpu.placement.mapper import score_placement
 from usher_tpu_torch.io.newick import write_newick as port_write_newick
-from usher_tpu_torch.ops import interval as iv
 from usher_tpu_torch.placement.mapper import score_placement as \
     port_score_placement
 from usher_tpu_torch.core import bigmat as bm
@@ -322,9 +321,10 @@ def test_big_engine_mesh_is_flattened_and_scores_alike():
 
 
 def test_unported_branches_raise(monkeypatch):
-    """The segment-query kernel (X9), the grouped engine (X6) and the SPR
-    search over a batch mesh (A7) raise instead of running something else;
-    a batch mesh itself scores and places (test_bigmat_mesh_identical)."""
+    """The segment-query kernel (X9) and the grouped engine (X6) raise
+    instead of running something else; a batch mesh itself scores and
+    places (test_bigmat_mesh_identical) and searches SPR moves
+    (test_torch_spr_big.py::test_sharded_spr_search_matches)."""
     jb, tb, samples, _ = _pair(5)
     pos, gval, kmiss = tb.sparsify(samples)
     with pytest.raises(NotImplementedError, match="X6"):
@@ -334,6 +334,3 @@ def test_unported_branches_raise(monkeypatch):
     monkeypatch.setenv("USHER_TPU_SEG", "1")
     with pytest.raises(NotImplementedError, match="X9"):
         tb.place_arrays(pos, gval, kmiss)
-    monkeypatch.setenv("USHER_TPU_SEG", "0")
-    with pytest.raises(NotImplementedError, match="A7"):
-        iv._spr_sharded_fn(None, "batch", tb.N, 4)

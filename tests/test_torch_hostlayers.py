@@ -428,3 +428,128 @@ def test_direct_slice_copies_keep_the_code(module, changed):
     assert sorted(got) == sorted(want)
     differ = {name for name in want if got[name] != want[name]}
     assert differ == changed
+
+
+@pytest.mark.parametrize("module,changed,added,removed", [
+    # the pure-Python codec only (the JAX package's native one is A6c)
+    ("io.transpose", {"encode", "decode"}, set(), set()),
+    ("io.diff", set(), set(), set()),
+    ("io.patch", set(), set(), set()),
+    ("io.detailed", set(), set(), set()),
+    # a column slice of one sorted entry list per BFS order, not a Python
+    # loop over the leaves per chunk
+    ("optimize.leafstore", {"SparseLeafStore.__init__",
+                            "SparseLeafStore.materialize"},
+     {"SparseLeafStore._leaf_entries"}, set()),
+    # the device argument, the mesh of torch devices, two more spans
+    ("optimize.driver", {"optimize_tree", "optimize_tree.full_refresh",
+                         "optimize_tree.full_refresh_streamed"}, set(),
+     set()),
+    # X11 on torch, the tree's tensors per device, the source batch split
+    # over a mesh by _run_sharded
+    ("optimize.spr", {"MoveFinder.__init__", "MoveFinder.find_moves",
+                      "_score_moves"},
+     {"MoveFinder._chunk_inputs", "MoveFinder.tree_on", "_dest_ok",
+      "_source_arrays", "_source_paths", "_spr_scores", "_run_sharded",
+      "_run_sharded.one"}, set()),
+    # X3 on torch: per-level index tensors and the root-row rule; the
+    # mutation extraction in uint8 and over the rows that carry one, once
+    # a streamed chunk; the mask deviations as flat arrays grouped by
+    # numpy, not a Python step per node
+    ("optimize.fitch", {"FitchEngine.__init__", "FitchEngine.run",
+                        "FitchEngine.run_rewrite_streamed",
+                        "FitchEngine._mutation_arrays",
+                        "FitchEngine._mutation_lists", "_fs_chunk",
+                        "_fs_chunk.pick", "_min_back_chunk",
+                        "_min_back_chunk.pick", "MaskDeviations.__init__",
+                        "MaskDeviations.set_chunk",
+                        "MaskDeviations.deviations",
+                        "MaskDeviations.remap_patch"},
+     {"FitchEngine._levels_on", "FitchEngine._ref_nt", "FitchEngine._solve",
+      "_Levels.__init__", "_Levels.__init__.t", "_leaf_bits", "_masks_of",
+      "_root_row_kept", "MaskDeviations._arrays", "FitchEngine._lists_of"},
+     {"_min_back_chunk.contrib_of"}),
+    ("optimize.spr_big", {"BigMoveFinder.__init__", "BigMoveFinder._mc_for",
+                          "BigMoveFinder.find_moves", "_fetch3"},
+     {"BigMoveFinder._find_one", "BigMoveFinder._find_sharded"}, set()),
+    ("optimize.epp", {"_tie_matrix", "count_epps"}, {"count_epps.up"},
+     set()),
+    ("cli.matoptimize_cli", {"build_parser", "main"}, {"_visible_cards"},
+     set())])
+def test_matoptimize_slice_copies_keep_the_code(module, changed, added,
+                                                removed):
+    """Each function of the matOptimize slice is its original's, apart from
+    the named ones (what tests/test_torch_{fitch,spr,spr_big,epp,detailed,
+    matoptimize}.py hold against the JAX package)."""
+    import importlib
+    rel = module.replace(".", os.sep) + ".py"
+    jmod = importlib.import_module("usher_tpu." + module)
+    tmod = importlib.import_module("usher_tpu_torch." + module)
+    want = _code_by_name(os.path.join(os.path.dirname(jmod.__file__),
+                                      os.path.basename(rel)))
+    got = _code_by_name(os.path.join(os.path.dirname(tmod.__file__),
+                                     os.path.basename(rel)))
+    assert set(got) - set(want) == added
+    assert set(want) - set(got) == removed
+    assert {name for name in want
+            if name in got and got[name] != want[name]} == changed
+
+
+def test_transposed_vcf_codec_matches(tmp_path):
+    """The port's pure-Python codec writes the JAX package's bytes and
+    reads them back; samples_from_vcf and encode_vcf agree."""
+    from usher_tpu.io import transpose as jtr
+    from usher_tpu_torch.io import transpose as ttr
+    samples = [("s1", [(5, 1), (9, 4), (300, 8)], [(12, 14)]),
+               ("s_two", [(7, 2)], []), ("s3", [], [(1, 1), (40, 90)])]
+    a, b = tmp_path / "a.tvcf", tmp_path / "b.tvcf"
+    jtr._encode_py(samples, str(a))
+    ttr.encode(samples, str(b))
+    ttr.encode(samples[:1], str(b), append=True)
+    jtr._encode_py(samples[:1], str(a), append=True)
+    assert a.read_bytes() == b.read_bytes()
+    assert ttr.decode(str(b)) == jtr._decode_py(str(a))
+    assert ttr.samples_from_vcf(tvcf.read_vcf_sites(GLOBAL_VCF)) == \
+        jtr.samples_from_vcf(jvcf.read_vcf_sites(GLOBAL_VCF))
+    assert ttr.encode_vcf(GLOBAL_VCF, str(b)) == \
+        jtr.encode_vcf(GLOBAL_VCF, str(a))
+    assert ttr.decode(str(b)) == jtr.decode(str(a))
+
+
+def test_diff_and_patch_match(tmp_path):
+    """io/diff.py's loaders and io/patch.py's two patchers give the JAX
+    package's records and trees."""
+    from usher_tpu.io import diff as jdiff, patch as jpatch
+    from usher_tpu.io import transpose as jtr
+    from usher_tpu_torch.io import diff as tdiff, patch as tpatch
+    ref_fa = tmp_path / "ref.fa"
+    ref_fa.write_text(">chr\n" + "ACGTN" * 8 + "\n")
+    diff = tmp_path / "s.diff"
+    diff.write_text(">L1\nc\t5\n>L2\ng\t7\nn\t12\t3\n>L3\n-\t20\n>L4\n")
+    jrefs, jchrom = jdiff.load_reference_fasta(str(ref_fa))
+    trefs, tchrom = tdiff.load_reference_fasta(str(ref_fa))
+    assert (list(trefs), tchrom) == (list(jrefs), jchrom)
+    js = jdiff.load_diff(str(diff), jrefs, jchrom)
+    ts = tdiff.load_diff(str(diff), trefs, tchrom)
+    assert [(s.name, [(m.position, m.ref_nuc, m.mut_nuc) for m in
+                      s.mutations]) for s in ts] == \
+        [(s.name, [(m.position, m.ref_nuc, m.mut_nuc) for m in s.mutations])
+         for s in js]
+    nh = tmp_path / "t.nh"
+    nh.write_text("((L1,L2),(L3,L4));\n")
+    J, P = jnewick.parse_newick(str(nh)), tnewick.parse_newick(str(nh))
+    assert tpatch.assign_states_from_diff(P, str(diff), str(ref_fa)) == \
+        jpatch.assign_states_from_diff(J, str(diff), str(ref_fa))
+    assert tree_signature(P) == tree_signature(J)
+    rng = np.random.default_rng(4)
+    T, _ = random_mat(rng, n_leaves=30, n_positions=15)
+    P = port_tree(T)
+    leaves = [n.identifier for n in T.get_leaves()]
+    pos = sorted({m.position for n in T.breadth_first_expansion()
+                  for m in n.mutations})
+    tv = str(tmp_path / "p.tvcf")
+    jtr._encode_py([(leaves[0], [(pos[0], 5), (99999, 2)], [(pos[1], pos[3])]),
+                    (leaves[5], [(pos[2], 15)], [])], tv)
+    assert tpatch.patch_mat_from_transposed_vcf(P, tv) == \
+        jpatch.patch_mat_from_transposed_vcf(T, tv)
+    assert tree_signature(P) == tree_signature(T)

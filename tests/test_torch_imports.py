@@ -16,11 +16,23 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "usher_tpu_torch",
     "usher_tpu_torch.cli.usher_cli",
+    "usher_tpu_torch.cli.matoptimize_cli",
     "usher_tpu_torch.core.bigmat",
+    "usher_tpu_torch.io.detailed",
+    "usher_tpu_torch.io.diff",
+    "usher_tpu_torch.io.patch",
+    "usher_tpu_torch.io.transpose",
     "usher_tpu_torch.io.pb_arrays",
     "usher_tpu_torch.ops.interval",
     "usher_tpu_torch.ops.placement_sparse",
     "usher_tpu_torch.ops.sankoff",
+    "usher_tpu_torch.optimize",
+    "usher_tpu_torch.optimize.driver",
+    "usher_tpu_torch.optimize.epp",
+    "usher_tpu_torch.optimize.fitch",
+    "usher_tpu_torch.optimize.leafstore",
+    "usher_tpu_torch.optimize.spr",
+    "usher_tpu_torch.optimize.spr_big",
     "usher_tpu_torch.parallel.mesh",
     "usher_tpu_torch.parallel.shard",
     "usher_tpu_torch.placement.big_engine",

@@ -575,6 +575,7 @@ class BigMAT:
             "active": self.active[o],
             "num_leaves": self.num_leaves[o],
             "bfs_rank": self.bfs_rank[o],
+            "level": self.level.astype(np.int32)[o],
             "dfs_of": self.dfs_of.astype(np.int64),
         }
         if sharded:

@@ -18,6 +18,10 @@ itself.  Everything here is plain torch on the device of its inputs:
   X5 ``interval_place_dev``
                            the events expanded on the device from the
                            resident CSC index, then the same reduction
+  X7 ``interval_spr`` / ``interval_spr_dev`` / ``_spr_sharded_fn``
+                           the SPR destination search (optimize/spr_big.py):
+                           a source's ancestor-interval count rides in extra
+                           columns of the same scan and bounds the radius
 
 Scatter-adds target an explicit dump row ``n_pad`` (row count n_pad + 1):
 padding pairs and range ends past the last row land there and are never
@@ -274,30 +278,40 @@ def _dev_score_nc(csc_ptr, csc_node, csc_meta, dfs_of, dfs_end_of,
                   ref_cols, pos, gval, kmiss,
                   ov_idx, ov_b, ov_val, ovn_idx, ovn_b, ovn_val,
                   base_dfs, nc_base_dfs, n_pad: int, b_pad: int, mc: int,
-                  spr: bool):
-    """Shared core of X5: device expansion, delta evaluation, the three
-    difference-array scatters and the nc point scatter (plus the
-    host-expanded overlay events of incremental appends), cumsum, add0.
-    Returns (score, nc) [n_pad, b_pad] int32 in DFS order."""
+                  spr: bool, extra_cols: int = 0, cnt=None):
+    """Shared core of X5 and X7's device path: device expansion, delta
+    evaluation, the three difference-array scatters and the nc point
+    scatter (plus the host-expanded overlay events of incremental appends),
+    cumsum, add0.  cnt=(idx, b, val) adds an extra channel of extra_cols
+    columns past the b_pad score columns, folded into the same scan.
+    Returns (score, nc) [n_pad, b_pad] int32 in DFS order, and the extra
+    channel's running sums [n_pad, extra_cols] when cnt is given."""
     r, rend, flat_b, d_range, d_point, d_nc, add0 = _entry_deltas(
         csc_ptr, csc_node, csc_meta, dfs_of, dfs_end_of, ref_cols,
         pos, gval, kmiss, n_pad, mc, spr)
     dev = base_dfs.device
-    diff = torch.zeros((n_pad + 1, b_pad), dtype=torch.int32, device=dev)
+    diff = torch.zeros((n_pad + 1, b_pad + extra_cols), dtype=torch.int32,
+                       device=dev)
     _scatter_add(diff, r, flat_b, d_range + d_point)
     _scatter_add(diff, rend, flat_b, -d_range)
     _scatter_add(diff, (r + 1).clamp(max=n_pad), flat_b, -d_point)
     _scatter_add(diff, ov_idx, ov_b, ov_val)
+    if cnt is not None:
+        cnt_idx, cnt_b, cnt_val = cnt
+        _scatter_add(diff, cnt_idx, b_pad + cnt_b.long(), cnt_val)
     ncd = torch.zeros((n_pad + 1, b_pad), dtype=torch.int32, device=dev)
     _scatter_add(ncd, r, flat_b, d_nc)
     _scatter_add(ncd, ovn_idx, ovn_b, ovn_val)
     del r, rend, flat_b, d_range, d_point, d_nc
-    score = _scan_rows(diff[:n_pad])
+    run = _scan_rows(diff[:n_pad])
     del diff
+    score = run[:, :b_pad]
     score += base_dfs[:, None]
     score[:, :add0.shape[0]] += add0[None, :]
     nc = ncd[:n_pad]
     nc += nc_base_dfs[:, None]
+    if cnt is not None:
+        return score, nc, run[:, b_pad:]
     return score, nc
 
 
@@ -340,10 +354,144 @@ def pad_events(idx, b, val, n_pad: int):
             np.asarray(val, dtype=np.int32))
 
 
-def _spr_sharded_fn(mesh, axis, n_pad: int, bl: int):
-    """The SPR destination search over a batch mesh (X7 split over source
-    nodes) waits for the matOptimize slice; the placement and scoring
-    shardings of a batch mesh live in core/bigmat.py."""
-    raise NotImplementedError(
-        "the SPR move search over a device mesh is not ported yet "
-        "(ROADMAP A7, X7)")
+# --- X7: the SPR destination search -----------------------------------------
+
+def _finish_spr(score, nc, cnt, num_mut_dfs, is_root_dfs, active_dfs,
+                num_leaves_dfs, bfs_rank_dfs, level_dfs,
+                src_level, src_lo, src_hi, src_parent_row, radius: int,
+                n_pad: int):
+    """SPR validity + radius mask + tie-broken reduction, shared by the
+    host- and device-expansion entry points.  The lca level of (src, dst)
+    is cnt - 1 (cnt counts the source's ancestors whose DFS interval holds
+    dst); src_lo/src_hi/src_parent_row are DFS rows (-1 for no parent row).
+    Returns (best_cost [B], best_row [B] int32, hu_best [B] bool)."""
+    hu = nc < num_mut_dfs[:, None]
+    # dest leaves get sibling-split via has_unique (optimize/spr.py)
+    valid = (is_root_dfs[:, None] | (hu & (nc > 0)) | ~hu) \
+        & active_dfs[:, None]
+    lca_lvl = cnt - 1
+    dist = level_dfs[:, None] + src_level[None, :] - 2 * lca_lvl
+    rows = torch.arange(n_pad, dtype=torch.int32,
+                        device=score.device)[:, None]
+    in_sub = (rows >= src_lo[None, :]) & (rows < src_hi[None, :])
+    valid &= (dist <= radius) & ~in_sub & (rows != src_parent_row[None, :])
+    del dist, in_sub
+    best, best_row, _ = _tie_reduce(score, valid, num_leaves_dfs,
+                                    bfs_rank_dfs)
+    hu_best = torch.gather(hu, 0, best_row.long()[None, :])[0]
+    return best, best_row, hu_best
+
+
+def interval_spr_dev(csc_ptr, csc_node, csc_meta, dfs_of, dfs_end_of,
+                     ref_cols, pos, gval,
+                     cnt_idx, cnt_b, cnt_val,
+                     base_dfs, nc_base_dfs,
+                     num_mut_dfs, is_root_dfs, active_dfs,
+                     num_leaves_dfs, bfs_rank_dfs, level_dfs,
+                     src_level, src_lo, src_hi, src_parent_row, radius: int,
+                     n_pad: int, b_pad: int, mc: int):
+    """X7 with the events expanded on the device from the resident CSC
+    index: a chunk uploads its [B, K] source-deviation arrays and the
+    (small) ancestor-interval events, and the ancestor count rides in
+    b_pad extra columns of the score scan.  Equal to interval_spr
+    (tested)."""
+    B, K = pos.shape
+    kmiss = torch.zeros((B, K), dtype=torch.bool, device=pos.device)
+    z = torch.zeros(0, dtype=torch.int64, device=pos.device)
+    score, nc, cnt = _dev_score_nc(
+        csc_ptr, csc_node, csc_meta, dfs_of, dfs_end_of, ref_cols,
+        pos, gval, kmiss, z, z, z, z, z, z,
+        base_dfs, nc_base_dfs, n_pad, b_pad, mc, spr=True,
+        extra_cols=b_pad, cnt=(cnt_idx, cnt_b, cnt_val))
+    return _finish_spr(score, nc, cnt, num_mut_dfs, is_root_dfs,
+                       active_dfs, num_leaves_dfs, bfs_rank_dfs, level_dfs,
+                       src_level, src_lo, src_hi, src_parent_row, radius,
+                       n_pad)
+
+
+def interval_spr(ev_idx, ev_b, ev_val, nc_idx, nc_b, nc_val,
+                 cnt_idx, cnt_b, cnt_val,
+                 base_dfs, nc_base_dfs, add0,
+                 num_mut_dfs, is_root_dfs, active_dfs,
+                 num_leaves_dfs, bfs_rank_dfs, level_dfs,
+                 src_level, src_lo, src_hi, src_parent_row, radius: int,
+                 n_pad: int, b_pad: int):
+    """X7: the SPR destination search for a batch of pruned sources over
+    host-expanded events.  The radius bound is a nested-interval count too:
+    the lca level of (src, dst) for every dst is (#proper ancestors of src
+    whose DFS interval holds dst) - 1, so cnt_* adds +1 over each ancestor
+    interval in b_pad extra columns of the same difference array and scan
+    (replacing the reference's per-node pointer walks,
+    Profitable_Moves_Enumerators.hpp:166).  Returns (best_cost [B],
+    best_dfs_row [B], hu_best [B])."""
+    dev = base_dfs.device
+    diff = torch.zeros((n_pad + 1, 2 * b_pad), dtype=torch.int32, device=dev)
+    _scatter_add(diff, ev_idx, ev_b, ev_val)
+    _scatter_add(diff, cnt_idx, b_pad + cnt_b.long(), cnt_val)
+    run = _scan_rows(diff[:n_pad])
+    del diff
+    score = run[:, :b_pad]
+    score += base_dfs[:, None]
+    score += add0[None, :]
+    ncd = torch.zeros((n_pad + 1, b_pad), dtype=torch.int32, device=dev)
+    _scatter_add(ncd, nc_idx, nc_b, nc_val)
+    nc = ncd[:n_pad]
+    nc += nc_base_dfs[:, None]
+    return _finish_spr(score, nc, run[:, b_pad:], num_mut_dfs, is_root_dfs,
+                       active_dfs, num_leaves_dfs, bfs_rank_dfs, level_dfs,
+                       src_level, src_lo, src_hi, src_parent_row, radius,
+                       n_pad)
+
+
+def shard_events(ev, nd: int, bl: int, n_pad: int):
+    """Split host (idx, b, val) events by the shard that owns their source
+    (b // bl) into nd runs, source ids made local; a list of nd int32
+    (idx, b, val) triples.  The JAX version stacked the runs into one
+    bucketed [nd, cap] array for shard_map; here each shard uploads its
+    own run."""
+    idx, b, val = pad_events(*ev, n_pad)
+    owner = b // bl
+    order = np.argsort(owner, kind="stable")
+    idx, b, val, owner = idx[order], b[order], val[order], owner[order]
+    cuts = np.searchsorted(owner, np.arange(nd + 1))
+    return [(idx[cuts[k]:cuts[k + 1]], b[cuts[k]:cuts[k + 1]] - k * bl,
+             val[cuts[k]:cuts[k + 1]]) for k in range(nd)]
+
+
+def _spr_sharded_fn(mesh, n_pad: int, bl: int):
+    """X7 over a 1-D batch mesh (the counterpart of the JAX shard_map of
+    interval_spr): shard k scores the sources [k * bl, (k + 1) * bl) on
+    its device and stream against its copy of the DFS metadata.  Returns
+    fn(ev, nc, cnt, metas, add0, src_level, src_lo, src_hi,
+    src_parent_row, radius) -> host int32 [3, B] (best_cost, best_row,
+    hu_best): ev/nc/cnt are shard_events runs, metas one _dfs_meta dict a
+    shard, the rest host [B] arrays."""
+    from ..parallel.mesh import for_each_shard
+
+    def fn(ev, nc, cnt, metas, add0, src_level, src_lo, src_hi,
+           src_parent_row, radius: int):
+        B = len(add0)
+
+        def one(idx):
+            k = idx[0]
+            lo, hi = min(k * bl, B), min((k + 1) * bl, B)
+            if hi == lo:
+                return None
+            device = mesh.devices[idx]
+            meta = metas[k]
+
+            def t(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            out = interval_spr(
+                *(t(a) for a in ev[k]), *(t(a) for a in nc[k]),
+                *(t(a) for a in cnt[k]), meta["base"], meta["nc_base"],
+                t(add0[lo:hi]), meta["num_mut"], meta["is_root"],
+                meta["active"], meta["num_leaves"], meta["bfs_rank"],
+                meta["level"], t(src_level[lo:hi]), t(src_lo[lo:hi]),
+                t(src_hi[lo:hi]), t(src_parent_row[lo:hi]), radius,
+                n_pad, hi - lo)
+            return torch.stack([o.to(torch.int32) for o in out])
+        res = for_each_shard(mesh, one)
+        return torch.cat([res[idx].cpu() for idx in mesh.indices()
+                          if res[idx] is not None], dim=1).numpy()
+    return fn
