@@ -26,6 +26,14 @@ these phases and fails (non-zero exit) if any of them fails:
                    fewer): mesh B1 against its plain twin and the
                    unsharded B1, the sharded B2 step against the unsharded
                    B2, with the ms of each beside the unsharded call
+  native           the compiled host scanners (usher_tpu_torch/native/src/
+                   usher_native.cpp) built with g++ at their first use,
+                   timed; on the realistic pb and VCF and on the fixture:
+                   pb_to_arrays, newick_to_arrays, load_mat_arrays,
+                   parse_vcf, parse_vcf_mt, read_vcf_sites and the
+                   transposed codec (bytes, round trip) == the pure-Python
+                   scanners, both sides timed; every later CLI reads
+                   through the compiled scanner
   kernel_wide      B1 and B2 (and B1-spr, B1-3d), fused and with given row
                    sums, at position widths whose rows the launch plan cuts
                    into column segments: 131,072, 240,000 and 100,003 (no
@@ -97,6 +105,26 @@ these phases and fails (non-zero exit) if any of them fails:
                    == X7 on host events on the card (every source) == a
                    CPU-tensor run (the first 16); ms a chunk, source nodes
                    searched a minute, peak device memory
+  sampled_fixture  usher-sampled (usher_tpu_torch/cli/usher_sampled_cli.py)
+                   on the fixture, on the card and in a CPU subprocess:
+                   VCF with -B, --diff, -A -k -K, -M 2, --bigmat -s,
+                   --mesh-devices 4 -s, and a pruned tree whose 85 new
+                   samples fill more than a chunk, so the interleaved
+                   optimization runs (and a final round): every output
+                   file byte-equal between card and CPU
+  sampled_realistic
+                   usher-sampled -s on the realistic pb (the tree is not
+                   cut) with the first 256 of its 1,024 samples, dense and
+                   --bigmat: byte-equal files; walls, spans, score_samples
+                   calls, stale retries, peak device memory
+  server_realistic usher_server --once with the realistic pb pre-loaded
+                   and two argument files of 64 samples (the second with
+                   -s, B2), each == the usher CLI's files; the socket
+                   server with two identical 64-sample requests and a
+                   FIFO stop: equal replies and files, equal to
+                   usher-sampled's on those samples; each request's wall
+                   and the device memory after it (the second request's
+                   peak within 5% of the first's)
 
 Kernel against plain comparisons are exact (tolerance 0: the arithmetic is
 integer).  Every comparison covers the kernel with caller-given row sums and
@@ -113,7 +141,12 @@ bigmat_realistic and bigmat_pandemic's scoring calls, kernel B1-spr in the
 column path), and the --pb-direct path (direct_fixture and direct_realistic),
 which must launch neither B1 nor B2, and the matOptimize path
 (optimize_fixture, optimize_realistic and optimize_pandemic), whose device
-programs are torch ops and which must launch none of the five.  B1-3d has
+programs are torch ops and which must launch none of the five, the
+usher-sampled path (sampled_fixture and sampled_realistic), whose B1
+launches must equal its PlacementEngine.score_samples calls (one a shard
+under a mesh), and the two servers (server_realistic, a window each:
+usher_server's -s request must launch B2).  The scanner phase launches
+nothing.  B1-3d has
 no caller on any path (its TPU counterpart has
 none either), so its main-path count is 0 and only the comparisons launch
 it.  A kernel's bound is the larger of the bytes it must move (inputs read
@@ -1976,6 +2009,570 @@ def phase_optimize_pandemic(big, card, n_srcs=2048, chunk=512, radius=8,
                       "the card) == CPU tensors (first 16)"}
 
 
+# --- the compiled host scanners -------------------------------------------------
+
+@contextlib.contextmanager
+def pure_python_scanners():
+    """The port as it runs where native/ could not be built."""
+    from usher_tpu_torch import native
+    loaded = native._loaded
+    native._loaded = lambda: (None, "pure-Python comparison run")
+    try:
+        yield
+    finally:
+        native._loaded = loaded
+
+
+def timed_s(fn, *a):
+    t0 = time.perf_counter()
+    out = fn(*a)
+    return out, time.perf_counter() - t0
+
+
+def same_pb_arrays(nat, py):
+    """ext.pb_to_arrays's raw tuple against _py_pb_to_arrays's arrays."""
+    if nat[0] != py[0] or nat[6:8] != py[6:8] or (nat[9] or b"") != py[9]:
+        raise AssertionError("pb_to_arrays: newick, chrom, condensed or "
+                             "annotations differ")
+    for k, dt in ((1, np.int32), (2, np.int32), (3, np.int8), (4, np.int8),
+                  (5, np.uint8), (8, np.int32)):
+        arr = np.frombuffer(nat[k], dt) if nat[k] else np.zeros(0, dt)
+        if not np.array_equal(arr, py[k]):
+            raise AssertionError(f"pb_to_arrays field {k} differs")
+
+
+def same_newick_arrays(nat, py):
+    n, parent, names, blen = nat
+    if (n != py[0] or names != py[2]
+            or not np.array_equal(np.frombuffer(parent, np.int32), py[1])
+            or not np.array_equal(np.frombuffer(blen, np.float64), py[3])):
+        raise AssertionError("newick_to_arrays differs from pure Python")
+
+
+def vcf_rows(vcf):
+    return (vcf.sample_ids, [(s.chrom, s.position, s.ref_nuc, s.variants)
+                             for s in vcf.sites])
+
+
+def raw_vcf_rows(parsed):
+    ids, sites = parsed
+    return ids, [(c, int(p), int(r), [(int(a), int(b)) for a, b in v])
+                 for c, p, r, v in sites]
+
+
+def fixture_pb(out):
+    """The fixture MAT as a pb, built by the usher CLI (no sample to
+    place, so no kernel launch)."""
+    fx = os.path.join(REPO, "tests", "fixtures")
+    run_cli(["-t", os.path.join(fx, "global_phylo.nh"), "-v",
+             os.path.join(fx, "global_samples.vcf"), "-o",
+             os.path.join(out, "fixture.pb"), "-d", os.path.join(out, "b"),
+             "--mesh-devices", "0"])
+    return os.path.join(out, "fixture.pb")
+
+
+def phase_native(kern, pb, vcf):
+    """Build native/src/usher_native.cpp with g++ (the first use of the
+    scanner in this run), then on the realistic pb and VCF and on the
+    fixture: the compiled pb_to_arrays, newick_to_arrays, parse_vcf,
+    parse_vcf_mt, read_vcf_sites, load_mat_arrays and the transposed codec
+    (bytes and a round trip) equal to the pure-Python scanners, each timed
+    on both sides.  No kernel runs here."""
+    from usher_tpu_torch import native
+    from usher_tpu_torch.io import pb_arrays, transpose
+    from usher_tpu_torch.io.vcf import read_vcf_sites
+    from usher_tpu_torch.native import _build
+    before = kern.counts()
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the compiled scanner did not build:\n"
+                             f"{native.build_error()}")
+    res = {"build_s": time.perf_counter() - t0,
+           "library": os.path.relpath(str(_build.library_path()), REPO)}
+    ext = native.ext
+    out = os.path.join(WORK, "native")
+    os.makedirs(out, exist_ok=True)
+    fx = os.path.join(REPO, "tests", "fixtures")
+    inputs = {"realistic": (pb, vcf),
+              "fixture": (fixture_pb(out),
+                          os.path.join(fx, "global_samples.vcf"))}
+    for tag, (pb_path, vcf_path) in inputs.items():
+        r = {}
+        with open(pb_path, "rb") as f:
+            buf = f.read()
+        nat, r["pb_to_arrays_s"] = timed_s(ext.pb_to_arrays, buf)
+        py, r["pb_to_arrays_py_s"] = timed_s(pb_arrays._py_pb_to_arrays, buf)
+        same_pb_arrays(nat, py)
+        nwk, r["newick_to_arrays_s"] = timed_s(ext.newick_to_arrays, nat[0])
+        pnwk, r["newick_to_arrays_py_s"] = timed_s(
+            pb_arrays._py_newick_to_arrays, nat[0])
+        same_newick_arrays(nwk, pnwk)
+        arrays, r["load_mat_arrays_s"] = timed_s(pb_arrays.load_mat_arrays,
+                                                 pb_path)
+        with pure_python_scanners():
+            parrays, r["load_mat_arrays_py_s"] = timed_s(
+                pb_arrays.load_mat_arrays, pb_path)
+        for k in ("parent", "blen", "mut_ptr", "mut_col", "mut_par",
+                  "mut_mut", "positions", "ref", "ann_counts"):
+            if not np.array_equal(getattr(arrays, k), getattr(parrays, k)):
+                raise AssertionError(f"{tag}: load_mat_arrays.{k} differs")
+        del nat, py, nwk, pnwk, arrays, parrays, buf
+        with pure_python_scanners():
+            want, r["read_vcf_sites_py_s"] = timed_s(read_vcf_sites, vcf_path)
+        got, r["read_vcf_sites_s"] = timed_s(read_vcf_sites, vcf_path)
+        want_rows = vcf_rows(want)
+        if vcf_rows(got) != want_rows:
+            raise AssertionError(f"{tag}: read_vcf_sites differs")
+        for name, call in (("parse_vcf", lambda: ext.parse_vcf(vcf_path)),
+                           ("parse_vcf_mt",
+                            lambda: ext.parse_vcf_mt(vcf_path))):
+            parsed, r[name + "_s"] = timed_s(call)
+            if raw_vcf_rows(parsed) != want_rows:
+                raise AssertionError(f"{tag}: {name} differs")
+            del parsed
+        samples = transpose.samples_from_vcf(want)
+        del got, want, want_rows
+        a, b = (os.path.join(out, f"{tag}_{s}.tvcf") for s in ("c", "py"))
+        _, r["transpose_encode_s"] = timed_s(transpose.encode, samples, a)
+        _, r["transpose_encode_py_s"] = timed_s(transpose._encode_py,
+                                                samples, b)
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{tag}: transposed bytes differ")
+        back, r["transpose_decode_s"] = timed_s(transpose.decode, a)
+        pback, r["transpose_decode_py_s"] = timed_s(transpose._decode_py, a)
+        if not back == pback == [(n, list(m), list(x))
+                                 for n, m, x in samples]:
+            raise AssertionError(f"{tag}: transposed round trip differs")
+        r["vcf_samples"], r["tvcf_bytes"] = len(samples), os.path.getsize(a)
+        res[tag] = r
+    after = kern.counts()
+    launches = {k: after[k] - before[k] for k in after}
+    if any(launches.values()):
+        raise AssertionError(f"the scanner phase launched {launches}")
+    res["equal"] = ("pb_to_arrays, newick_to_arrays, load_mat_arrays, "
+                    "parse_vcf, parse_vcf_mt, read_vcf_sites, transposed "
+                    "bytes and round trip: compiled == pure Python")
+    return res
+
+
+# --- usher-sampled and the servers ------------------------------------------------
+
+@contextlib.contextmanager
+def sampled_spies(rec):
+    """Count, from outside the package, PlacementEngine.score_samples calls
+    (with and without a mesh: each call is one fused B1 launch, or one a
+    shard), their synchronized ms, and the BatchPlacementStats of every
+    place_batch of the usher-sampled CLI."""
+    from usher_tpu_torch.cli import usher_sampled_cli as cli
+    from usher_tpu_torch.placement.driver import PlacementEngine
+    score = PlacementEngine.score_samples
+    place = cli.place_batch
+
+    def score_spy(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = score(self, *a, **k)
+        torch.cuda.synchronize()
+        key = "mesh" if self.mesh is not None else "plain"
+        rec.setdefault("score_ms", []).append(
+            (time.perf_counter() - t0) * 1e3)
+        rec["calls_" + key] = rec.get("calls_" + key, 0) + 1
+        if self.mesh is not None:
+            rec["shards"] = self.mesh.shape["data"] * self.mesh.shape["model"]
+        return out
+
+    def place_spy(*a, **k):
+        st = place(*a, **k)
+        for f in ("placed", "retried", "ignored", "parsimony_increase"):
+            rec[f] = rec.get(f, 0) + getattr(st, f)
+        return st
+
+    PlacementEngine.score_samples = score_spy
+    cli.place_batch = place_spy
+    try:
+        yield
+    finally:
+        PlacementEngine.score_samples = score
+        cli.place_batch = place
+
+
+def expected_b1(rec):
+    """B1 launches the score_samples calls of `rec` make."""
+    return rec.get("calls_plain", 0) + rec.get("calls_mesh", 0) * rec.get(
+        "shards", 0)
+
+
+def run_sampled(argv, rec, trace=None):
+    """The usher-sampled CLI under sampled_spies, its stderr captured (and
+    its tail passed on): (wall s, stderr, spans by name)."""
+    import io
+    from usher_tpu_torch.cli.usher_sampled_cli import main
+    from usher_tpu_torch.utils.instrument import Instrumentor
+    inst = Instrumentor.get()
+    if trace:
+        inst.begin_session(trace)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with sampled_spies(rec), contextlib.redirect_stderr(buf):
+            rc = main(argv)
+    finally:
+        if trace:
+            inst.end_session()
+    wall = time.perf_counter() - t0
+    err = buf.getvalue()
+    sys.stderr.write(err[-1500:])
+    if rc != 0:
+        raise AssertionError(f"usher-sampled {argv} returned {rc}")
+    return wall, err, stage_seconds(trace) if trace else {}
+
+
+def dir_files(d):
+    out = {}
+    for root, _, names in os.walk(d):
+        for n in names:
+            p = os.path.join(root, n)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, d)] = f.read()
+    return out
+
+
+def pruned_newick(path):
+    """The fixture newick with every fifth leaf pruned (85 of 422 leaves):
+    built with global_samples.vcf, the pruned samples are new and fill more
+    than one chunk of 64 (--batch_size_per_process 1)."""
+    from usher_tpu_torch.io.newick import parse_newick, write_newick
+    T = parse_newick(os.path.join(REPO, "tests", "fixtures",
+                                  "global_phylo.nh"))
+    for leaf in T.get_leaves()[::5]:
+        T.remove_node(leaf.identifier, True)
+    T.remove_single_child_nodes()
+    with open(path, "w") as f:
+        f.write(write_newick(T, print_branch_len=True) + "\n")
+    return path
+
+
+def fixture_diff(path, vcf_path):
+    """The new samples of a VCF as a MAPLE diff."""
+    from usher_tpu_torch.core.nuc import char_from_nuc_id
+    from usher_tpu_torch.io.vcf import read_vcf_sites
+    vcf = read_vcf_sites(vcf_path)
+    lines = []
+    for j, name in enumerate(vcf.sample_ids):
+        lines.append(f">{name}")
+        for site in vcf.sites:
+            v = dict(site.variants).get(j)
+            if v is not None and v != site.ref_nuc:
+                lines.append(f"n\t{site.position}" if v == 0xF else
+                             f"{char_from_nuc_id(v)}\t{site.position}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+CPU_SAMPLED = """
+import sys
+from usher_tpu_torch.cli.usher_sampled_cli import main
+for argv in {runs!r}:
+    if main(argv) != 0:
+        sys.exit(1)
+"""
+
+
+def phase_sampled_fixture(kern, built_pb):
+    """usher-sampled-torch on the fixture, on the card and (in a subprocess)
+    with USHER_TPU_PLATFORM=cpu: VCF with -B, --diff, -A -k -K, -M 2,
+    --bigmat, --mesh-devices 4, and the pruned tree (85 new samples in
+    chunks of 64 under --parsimony_threshold 1) that reaches the
+    interleaved optimization and a final round.  Every output file
+    byte-equal between card and CPU; B1 launches == score_samples calls
+    (one a shard under the mesh)."""
+    fx = os.path.join(REPO, "tests", "fixtures")
+    out = os.path.join(WORK, "sampled_fixture")
+    os.makedirs(out, exist_ok=True)
+    new_vcf = os.path.join(fx, "new_samples.vcf")
+    diff = fixture_diff(os.path.join(out, "new.diff"), new_vcf)
+    pruned = pruned_newick(os.path.join(out, "pruned.nh"))
+    modes = {
+        "vcf_B": ["-i", built_pb, "-v", new_vcf, "-B"],
+        "diff": ["-i", built_pb, "--diff", diff, "--ref",
+                 os.path.join(fx, "NC_045512v2.fa")],
+        "A_k_K": ["-i", built_pb, "-v", new_vcf, "-A", "-k", "10", "-K",
+                  "4"],
+        "M2": ["-i", built_pb, "-v", new_vcf, "-M", "2"],
+        "bigmat": ["-i", built_pb, "-v", new_vcf, "--bigmat", "-s"],
+        "mesh": ["-i", built_pb, "-v", new_vcf, "--mesh-devices",
+                 str(MESH_SHARDS), "-s"],
+        "interleaved": ["-t", pruned, "-v", os.path.join(
+            fx, "global_samples.vcf"), "--batch_size_per_process", "1",
+            "--parsimony_threshold", "1", "--optimization_radius", "2",
+            "--optimization_minutes", "1", "--last_optimization_minutes",
+            "1"]}
+
+    def runs(plat):
+        return [argv + ["-d", os.path.join(out, plat, m), "-o",
+                        os.path.join(out, plat, m, "o.pb")]
+                for m, argv in modes.items()]
+
+    before = kern.counts()
+    rec = {}
+    walls, errs = {}, {}
+    for m, argv in zip(modes, runs("cuda")):
+        walls[m], errs[m], _ = run_sampled(argv, rec)
+    after = kern.counts()
+    launches = {k: after[k] - before[k] for k in after}
+    if "Cumulative parsimony increase" not in errs["interleaved"]:
+        raise AssertionError("the interleaved optimization was not reached")
+    if launches["B1"] != expected_b1(rec) or not launches["B1"]:
+        raise AssertionError(f"B1 launches {launches['B1']} != the "
+                             f"score_samples calls' {expected_b1(rec)}")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c",
+                    CPU_SAMPLED.format(runs=runs("cpu"))],
+                   env=dict(os.environ, USHER_TPU_PLATFORM="cpu",
+                            PYTHONPATH=REPO), check=True, timeout=900,
+                   stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    cpu_s = time.perf_counter() - t0
+    n_files = 0
+    for m in modes:
+        cuda = dir_files(os.path.join(out, "cuda", m))
+        if not cuda or cuda != dir_files(os.path.join(out, "cpu", m)):
+            raise AssertionError(f"sampled_fixture {m}: card and CPU "
+                                 "files differ")
+        n_files += len(cuda)
+    return {"outputs": f"{n_files} files byte-equal, card and CPU ("
+                       + ", ".join(modes) + ")",
+            "interleaved": [l for l in errs["interleaved"].splitlines()
+                            if l.startswith(("Cumulative", "Final parsimony",
+                                             "The parsimony"))],
+            "card_s": walls, "cpu_subprocess_s": cpu_s,
+            "score_samples_calls": {k: rec.get(k, 0) for k in (
+                "calls_plain", "calls_mesh")},
+            "retried": rec.get("retried", 0), "placed": rec.get("placed", 0),
+            "launches": launches}
+
+
+def subset_vcf(src, dst, first, count):
+    """The VCF `src` with sample columns first..first+count-1 only."""
+    with open(src) as f, open(dst, "w") as out:
+        for line in f:
+            if line.startswith("##"):
+                out.write(line)
+                continue
+            w = line.rstrip("\n").split("\t")
+            out.write("\t".join(w[:9] + w[9 + first:9 + first + count])
+                      + "\n")
+    return dst
+
+
+def phase_sampled_realistic(kern, pb, vcf, n_samples):
+    """usher-sampled-torch -s on the realistic pb (the tree is not cut) and
+    the first n_samples of the realistic VCF, dense and --bigmat: byte-equal
+    files; per mode the wall, the spans, score_samples calls (== B1
+    launches, dense), stale retries, and the peak device memory."""
+    out = os.path.join(WORK, "sampled_realistic")
+    os.makedirs(out, exist_ok=True)
+    sub = subset_vcf(vcf, os.path.join(out, "samples.vcf"), 0, n_samples)
+    res = {"samples": n_samples}
+    launches = {}
+    for m, flags in (("dense", []), ("bigmat", ["--bigmat"])):
+        rec = {}
+        before = kern.counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wall, _, spans = run_sampled(
+            ["-i", pb, "-v", sub, "-d", os.path.join(out, m), "-s", *flags],
+            rec, trace=os.path.join(out, f"trace_{m}.json"))
+        after = kern.counts()
+        launches[m] = {k: after[k] - before[k] for k in after}
+        ms = rec.get("score_ms", [])
+        res[m] = {"cli_s": wall,
+                  "spans_s": {k: round(v, 3) for k, v in spans.items()},
+                  "score_samples_calls": rec.get("calls_plain", 0),
+                  "score_samples_median_ms": (statistics.median(ms)
+                                              if ms else None),
+                  "placed": rec.get("placed", 0),
+                  "retried": rec.get("retried", 0),
+                  "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "launches": launches[m]}
+        log(f"  sampled_realistic {m}: {json.dumps(res[m])}")
+        if rec.get("placed") != n_samples:
+            raise AssertionError(f"{m}: placed {rec.get('placed')}")
+    dense = launches["dense"]
+    if dense["B1"] != res["dense"]["score_samples_calls"] or not dense["B1"]:
+        raise AssertionError(f"dense: B1 launches {dense['B1']} != "
+                             f"score_samples calls "
+                             f"{res['dense']['score_samples_calls']}")
+    if launches["bigmat"]["B1"] or launches["bigmat"]["B2"]:
+        raise AssertionError(f"--bigmat launched {launches['bigmat']}")
+    same_files(os.path.join(out, "dense"), os.path.join(out, "bigmat"),
+               [(f, f) for f in PLACE_FILES])
+    res["outputs"] = "dense == --bigmat: " + ", ".join(PLACE_FILES)
+    res["launches"] = {k: dense[k] + launches["bigmat"][k] for k in dense}
+    return res
+
+
+@contextlib.contextmanager
+def request_spy(module, name, rec):
+    """Time each call of module.<name> (a server's per-request function)
+    and read the device memory after it: the peak since the window began
+    and what is still allocated."""
+    orig = getattr(module, name)
+
+    def spy(*a, **k):
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        rec.append({"wall_s": time.perf_counter() - t0,
+                    "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def socket_client(sock_path, fifo_path, requests, replies):
+    """Send each request (argument lists) on its own connection, collect
+    the replies, then stop the server through its FIFO."""
+    import socket as so
+    for args in requests:
+        for _ in range(600):
+            if os.path.exists(sock_path):
+                break
+            time.sleep(0.1)
+        c = so.socket(so.AF_UNIX, so.SOCK_STREAM)
+        c.settimeout(600)
+        c.connect(sock_path)
+        c.sendall(("".join(a + "\n" for a in args) + "\n").encode())
+        buf = b""
+        while not buf.endswith(b"\x04\n"):
+            chunk = c.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+        c.close()
+        replies.append(buf)
+    with open(fifo_path, "w") as f:
+        f.write("stop\n")
+
+
+def phase_server_realistic(kern, pb, vcf, n_samples):
+    """The two servers on the realistic pb (pre-loaded) with requests of
+    n_samples each.  usher_server --once: two argument files, the second
+    with -s (B2), each == the usher CLI's files on the same inputs.  The
+    socket server (one process, requests served in turn against a
+    Tree.copy()): two identical requests, whose replies and files must be
+    equal to each other and to usher-sampled's on the same samples (its
+    place_batch batch of 256, as the server's).  Per request its wall and
+    the device memory after it."""
+    from usher_tpu_torch.cli import usher_server_cli as userver
+    from usher_tpu_torch.cli import usher_socket_server_cli as usock
+    out = os.path.join(WORK, "server")
+    os.makedirs(out, exist_ok=True)
+    vcfs = [subset_vcf(vcf, os.path.join(out, f"s{i}.vcf"),
+                       256 + i * n_samples, n_samples) for i in range(2)]
+    res = {"samples_per_request": n_samples}
+
+    # --- usher_server --once: the counters cover the served requests ----
+    arg_dir = os.path.join(out, "args")
+    os.makedirs(arg_dir)
+    jobs = [f"-i {pb} -v {vcfs[0]} -d {out}/srv0",
+            f"-i {pb} -v {vcfs[1]} -d {out}/srv1 -s"]
+    for i, job in enumerate(jobs):
+        with open(os.path.join(arg_dir, f"job{i}.txt"), "w") as f:
+            f.write(job + "^\n")
+    mat_list = os.path.join(out, "mats.txt")
+    with open(mat_list, "w") as f:
+        f.write(pb + "\n")
+    store = userver.MatStore(mat_list)
+    t0 = time.perf_counter()
+    if not store.load_list():
+        raise AssertionError("usher_server: MAT list not loaded")
+    res["usher_server_preload_s"] = time.perf_counter() - t0
+    reqs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_counts()
+    t0 = time.perf_counter()
+    with request_spy(userver, "run_request", reqs):
+        if userver.serve(arg_dir, store, 10, 94, once=True) != 0:
+            raise AssertionError("usher_server returned non-zero")
+    res["usher_server_s"] = time.perf_counter() - t0
+    server_counts = kern.counts()
+    # ----------------------------------------------------------------------
+    if os.listdir(arg_dir) or len(reqs) != 2:
+        raise AssertionError(f"usher_server served {len(reqs)} requests")
+    if server_counts["B2"] < 1 or server_counts["B1"] < 2:
+        raise AssertionError(f"usher_server launches {server_counts}")
+    res["usher_server_requests"] = reqs
+    res["usher_server_launches"] = server_counts
+    del store
+    for i, flags in enumerate(([], ["-s"])):
+        run_cli(["-i", pb, "-v", vcfs[i], "-d", f"{out}/cli{i}",
+                 "--mesh-devices", "0", *flags])
+        same_files(f"{out}/srv{i}", f"{out}/cli{i}",
+                   [(f, f) for f in PLACE_FILES])
+    res["usher_server_outputs"] = ("== usher CLI, both requests: "
+                                   + ", ".join(PLACE_FILES))
+
+    # --- the socket server: the counters cover its two requests ---------
+    import threading
+    sock_path = os.path.join(out, "s.sock")
+    fifo_path = os.path.join(out, "mgr.fifo")
+    t0 = time.perf_counter()
+    trees = usock.TreeCollection([pb])
+    res["socket_preload_s"] = time.perf_counter() - t0
+    server = usock.SocketServer(sock_path, fifo_path, trees, timeout_s=900)
+    req = [["-i", pb, "-v", vcfs[0], "-d", f"{out}/sock{i}"]
+           for i in range(2)]
+    replies, sreqs = [], []
+    client = threading.Thread(target=socket_client,
+                              args=(sock_path, fifo_path, req, replies))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_counts()
+    client.start()
+    try:
+        with request_spy(usock, "handle_request", sreqs):
+            server.serve_forever()
+    finally:
+        server.close()
+        client.join(timeout=600)
+    sock_counts = kern.counts()
+    # ----------------------------------------------------------------------
+    if client.is_alive() or len(replies) != 2 or len(sreqs) != 2:
+        raise AssertionError("socket server: requests not served")
+    if replies[0] != replies[1] or b"Sample name:" not in replies[0]:
+        raise AssertionError("socket server: the two replies differ")
+    same_files(f"{out}/sock0", f"{out}/sock1", [(f, f) for f in PLACE_FILES])
+    peaks = [r["peak_device_gb"] for r in sreqs]
+    if peaks[1] > peaks[0] * 1.05:
+        raise AssertionError(f"socket server: peak device memory grew from "
+                             f"{peaks[0]:.3f} to {peaks[1]:.3f} GB")
+    if sock_counts["B1"] < 2:
+        raise AssertionError(f"socket server launches {sock_counts}")
+    res["socket_requests"] = sreqs
+    res["socket_launches"] = sock_counts
+    rec = {}
+    _, err, _ = run_sampled(["-i", pb, "-v", vcfs[0], "-d", f"{out}/sampled",
+                             "--batch_size_per_process", "32"], rec)
+    same_files(f"{out}/sock0", f"{out}/sampled",
+               [(f, f) for f in PLACE_FILES])
+    lines = [l for l in err.splitlines() if l.startswith("Sample name:")]
+    if "".join(l + "\n" for l in lines) + "\n" != \
+            replies[0][:-2].decode():
+        raise AssertionError("socket reply != usher-sampled's sample lines")
+    res["socket_outputs"] = ("two replies equal; files equal to each other "
+                             "and to usher-sampled --batch_size_per_process "
+                             "32: " + ", ".join(PLACE_FILES))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2033,6 +2630,10 @@ def main() -> int:
     T, pb, vcf, setup = realistic_setup(genome, 1024, 5)
     log(f"realistic setup: {json.dumps(setup)}")
 
+    # --- the compiled host scanners: built here, at their first use; every
+    # --- CLI below reads its VCF (and --pb-direct its pb) through them ---
+    phase("native", phase_native, kern, pb, vcf)
+
     # --- the dense main path: the counters cover exactly these CLI runs --
     kern.reset_counts()
     phase("fixture_e2e", phase_fixture_e2e, kern)
@@ -2078,10 +2679,18 @@ def main() -> int:
     kern.reset_counts()
     phase("direct_fixture", phase_direct_fixture, kern,
           os.path.join(WORK, "fixture", "out.pb"))
-    phase("direct_realistic", phase_direct_realistic, kern, pb, vcf,
-          out_dir, 1024, 64)
+    direct_real = phase("direct_realistic", phase_direct_realistic, kern,
+                        pb, vcf, out_dir, 1024, 64)
     direct_counts = kern.counts()
     log(f"--pb-direct path launches: {json.dumps(direct_counts)}")
+    setup_spans = {
+        "realistic_e2e": {k: round(stages.get(k, 0.0), 3)
+                          for k in ("cli:load_pb", "cli:read_vcf")},
+        "direct_realistic": {
+            m: {k: round(direct_real[m]["seconds"][k], 3) for k in (
+                "load_mat_arrays_s", "read_vcf_s", "placer_init_s")}
+            for m in ("sync", "pipelined")}}
+    log(f"set-up with the compiled scanner: {json.dumps(setup_spans)}")
     # ----------------------------------------------------------------------
 
     # --- the matOptimize path: the counters cover its three phases, which --
@@ -2096,6 +2705,22 @@ def main() -> int:
     log(f"matOptimize path launches: {json.dumps(opt_counts)}")
     if any(opt_counts.values()):
         raise AssertionError(f"matOptimize path: launches {opt_counts}")
+    # ----------------------------------------------------------------------
+
+    # --- the usher-sampled path: the counters cover its CLI runs on the ----
+    # --- card (B1 == score_samples calls, checked in each phase) -----------
+    kern.reset_counts()
+    sampled_fx = phase("sampled_fixture", phase_sampled_fixture, kern,
+                       os.path.join(WORK, "fixture", "out.pb"))
+    phase("sampled_realistic", phase_sampled_realistic, kern, pb, vcf, 256)
+    sampled_counts = kern.counts()
+    log(f"usher-sampled path launches: {json.dumps(sampled_counts)}")
+    # ----------------------------------------------------------------------
+
+    # --- the servers: server_realistic zeroes the counters before each -----
+    # --- daemon serves and reads them after ----------------------------------
+    server = phase("server_realistic", phase_server_realistic, kern, pb, vcf,
+                   64)
     # ----------------------------------------------------------------------
 
     for banned in ("jax", "jaxlib", "usher_tpu"):
@@ -2156,16 +2781,26 @@ def main() -> int:
                                    fused_bound_ms=main["fused_bound"][
                                        "bound_ms"]))
 
+    # launches of the usher-sampled and server paths beside the dense one's
+    mesh_shard_launches = (sampled_fx["score_samples_calls"]["calls_mesh"]
+                           * MESH_SHARDS)
+    new_paths = {
+        k: {"sampled_path_launches": sampled_counts[k],
+            "usher_server_launches": server["usher_server_launches"][k],
+            "socket_server_launches": server["socket_launches"][k]}
+        for k in ("B1", "B2")}
     kernels = [
         entry("B1 score_entries_T",
               "usher_tpu/ops/placement_pallas.py:176", counts["B1"],
               max(kern.err["B1"], kern.err["B1 fused"]), *genome_ms["B1"],
-              genome_bound["B1"], shape="kernel_genome", **fused("B1")),
+              genome_bound["B1"], shape="kernel_genome", **fused("B1"),
+              **new_paths["B1"]),
         entry("B2 placement_reduce",
               "usher_tpu/ops/placement_pallas.py:119", counts["B2"],
               max(kern.err["B2"], kern.err["B2 fused"]), *genome_ms["B2"],
               genome_bound["B2"], shape="kernel_genome",
-              mesh_path_launches=mesh_counts["B2"], **fused("B2")),
+              mesh_path_launches=mesh_counts["B2"], **fused("B2"),
+              **new_paths["B2"]),
         entry("B1-spr score_cols_T",
               "usher_tpu/ops/placement_pallas.py:416", big_counts["B1-spr"],
               kern.err["B1-spr"], pandemic["b1_spr_ms"],
@@ -2182,6 +2817,7 @@ def main() -> int:
               one_shard_bound_ms=kern.bounds["mesh_kernel"][
                   "one_shard_B1"]["bound_ms"],
               main_shapes=mesh_real["main_shapes"],
+              sampled_path_launches=mesh_shard_launches,
               wrapper="usher_tpu_torch/parallel/mesh.py"),
         entry("B1-3d score_entries_3d",
               "usher_tpu/ops/placement_pallas.py:300",

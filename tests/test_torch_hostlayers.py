@@ -279,8 +279,19 @@ def test_read_vcf_gzip_and_bad_rows(tmp_path):
     with open(bad, "w") as f:
         f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\ts1\n"
                 "c\t5\t.\tA\tG\t.\t.\t.\tGT\n")
-    with pytest.raises(ValueError, match="Incorrect VCF format"):
-        tvcf.read_vcf_sites(bad)
+    # the compiled scanners of both packages read a short row as calling
+    # no sample (both packages' default where the scanner is built) ...
+    assert _vcf_fields(tvcf.read_vcf_sites(bad)) == \
+        _vcf_fields(jvcf.read_vcf_sites(bad))
+    # ... and both pure-Python readers refuse it
+    import usher_tpu.native as jnative
+    import usher_tpu_torch.native as tnative
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "HAVE_NATIVE", False)
+        mp.setattr(tnative, "_loaded", lambda: (None, "not used"))
+        for mod in (tvcf, jvcf):
+            with pytest.raises(ValueError, match="Incorrect VCF format"):
+                mod.read_vcf_sites(bad)
 
 
 # --- placement/mapper -----------------------------------------------------------
@@ -408,8 +419,9 @@ def _code_by_name(path):
 
 
 @pytest.mark.parametrize("module,changed", [
-    # the port keeps the pure-Python scanners; its BigMAT takes a device
-    ("io.pb_arrays", {"MatArrays.to_bigmat", "load_mat_arrays"}),
+    # its BigMAT takes a device (the loader, compiled scanners included,
+    # is the original's since the port has native/)
+    ("io.pb_arrays", {"MatArrays.to_bigmat"}),
     ("placement.list_tree", set()),
     # a parallel.mesh.Mesh instead of a jax Mesh, the BigMAT on its lead
     ("placement.direct", {"DirectPlacer.__init__"})])
@@ -493,6 +505,53 @@ def test_matoptimize_slice_copies_keep_the_code(module, changed, added,
     assert set(want) - set(got) == removed
     assert {name for name in want
             if name in got and got[name] != want[name]} == changed
+
+
+@pytest.mark.parametrize("module,changed", [
+    ("io.vcf", set()),
+    ("placement.sampled", set()),
+    # the device, spans, --mesh-devices -1 over CUDA cards, --distributed
+    # refused, and no engine kept across an optimization round
+    ("cli.usher_sampled_cli", {"build_parser", "_optimize", "main"}),
+    # the version line names the port; the platform helper's home
+    ("cli.usher_server_cli", {"build_parser", "run_request", "main"}),
+    ("cli.usher_socket_server_cli", {"build_parser", "handle_request",
+                                     "main"})])
+def test_sampled_slice_copies_keep_the_code(module, changed):
+    """Each function of the usher-sampled / servers slice and of the VCF
+    reader (whose compiled branch came back with native/) is its
+    original's, apart from the named ones (what tests/test_torch_{native,
+    sampled,usher_sampled,servers}.py hold against the JAX package)."""
+    import importlib
+    rel = module.replace(".", os.sep) + ".py"
+    jmod = importlib.import_module("usher_tpu." + module)
+    tmod = importlib.import_module("usher_tpu_torch." + module)
+    want = _code_by_name(os.path.join(os.path.dirname(jmod.__file__),
+                                      os.path.basename(rel)))
+    got = _code_by_name(os.path.join(os.path.dirname(tmod.__file__),
+                                     os.path.basename(rel)))
+    assert sorted(got) == sorted(want)
+    assert {name for name in want if got[name] != want[name]} == changed
+
+
+def test_native_source_is_the_original():
+    """The compiled scanners' C++ is the JAX package's: the code below the
+    header comment is the same line for line, and only comments (`//` to
+    the end of a line; the source has no such text in a string) may
+    differ."""
+    import re
+    import usher_tpu.native as jnative
+    from usher_tpu_torch.native import _build
+
+    def code(path):
+        with open(path) as f:
+            src = f.read()
+        body = src[src.index("#define PY_SSIZE_T_CLEAN"):]
+        return [re.sub(r"\s*//.*$", "", line) for line in body.splitlines()]
+    want = code(os.path.join(os.path.dirname(jnative.__file__), "src",
+                             "usher_native.cpp"))
+    assert len(want) > 900
+    assert code(_build.SOURCE) == want
 
 
 def test_transposed_vcf_codec_matches(tmp_path):

@@ -17,12 +17,17 @@ PORT_MODULES = [
     "usher_tpu_torch",
     "usher_tpu_torch.cli.usher_cli",
     "usher_tpu_torch.cli.matoptimize_cli",
+    "usher_tpu_torch.cli.usher_sampled_cli",
+    "usher_tpu_torch.cli.usher_server_cli",
+    "usher_tpu_torch.cli.usher_socket_server_cli",
     "usher_tpu_torch.core.bigmat",
     "usher_tpu_torch.io.detailed",
     "usher_tpu_torch.io.diff",
     "usher_tpu_torch.io.patch",
     "usher_tpu_torch.io.transpose",
     "usher_tpu_torch.io.pb_arrays",
+    "usher_tpu_torch.native",
+    "usher_tpu_torch.native._build",
     "usher_tpu_torch.ops.interval",
     "usher_tpu_torch.ops.placement_sparse",
     "usher_tpu_torch.ops.sankoff",
@@ -39,6 +44,7 @@ PORT_MODULES = [
     "usher_tpu_torch.placement.direct",
     "usher_tpu_torch.placement.driver",
     "usher_tpu_torch.placement.list_tree",
+    "usher_tpu_torch.placement.sampled",
     "usher_tpu_torch.tools.subtrees",
     # what chip_smoke.py imports beyond the above
     "usher_tpu_torch.core.flat",
@@ -74,6 +80,9 @@ def test_port_imports_no_jax_and_no_triton():
         assert not hits, f"importing the port pulled in {hits[:5]}"
     for name in PORT_MODULES[1:]:
         assert name in new, name
+    # importing native/ builds and loads nothing: the scanner is built at
+    # first use
+    assert "_usher_native" not in new
     # the port's own host layers came in instead of the JAX package's
     assert "usher_tpu_torch.core.tree" in mods["all"]
     assert "usher_tpu_torch.placement.mapper" in mods["all"]

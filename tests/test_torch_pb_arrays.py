@@ -1,7 +1,8 @@
 """usher_tpu_torch.io.pb_arrays against usher_tpu.io.pb_arrays.
 
-Each side loads the same parsimony.pb from disk with its own loader (the
-port keeps the pure-Python scanners only): the flat arrays, the names,
+Each side loads the same parsimony.pb from disk with its own loader (each
+through its package's compiled scanner; tests/test_torch_native.py holds
+the port's compiled and pure-Python scanners together): the flat arrays, the names,
 condensed groups and annotations must be equal, the BigMATs built from them
 (the port's on CPU tensors) must hold the same aggregates, tie-break ranks
 and placements, and the array writers (final-tree newick, parsimony.pb)

@@ -3,12 +3,13 @@
 
 load_mat_pb (io/pbio.py) builds a Python Node per tree node -- at the
 reference's >2M-leaf public MAT that costs minutes and ~GBs before any
-compute starts.  This loader goes straight to flat arrays and hands them to
+compute starts.  This loader goes straight to flat arrays (the compiled
+proto/newick scanners, native/src/usher_native.cpp pb_to_arrays /
+newick_to_arrays, where they are built; the pure-Python ones otherwise) and
+hands them to
 core/bigmat.py: slots are DFS preorder (the order parsimony.pb stores
 node_mutations in, mutation_annotated_tree.cpp:522-613), with exact BFS
-tie-break ranks recomputed from (level, parent rank, child key).  The port
-keeps the pure-Python pb and newick scanners only, as its io/vcf.py keeps the
-pure-Python VCF parser; the compiled scanners are ROADMAP A12.
+tie-break ranks recomputed from (level, parent rank, child key).
 
 save_arrays_to_pb is the mirror writer, byte-compatible with
 io/pbio.save_mat_pb for the same tree.
@@ -155,9 +156,29 @@ def load_mat_arrays(filename: str) -> MatArrays:
         with open(filename, "rb") as f:
             buf = f.read()
 
-    (newick, counts, pos, refn, parn, mask, chrom, condensed,
-     ann_counts, ann_blob) = _py_pb_to_arrays(buf)
-    n, parent, names_blob, blen = _py_newick_to_arrays(newick)
+    from ..native import HAVE_NATIVE, ext
+    if HAVE_NATIVE:
+        (newick, counts_b, pos_b, ref_b, par_b, mask_b, chrom, condensed,
+         annc_b, ann_blob) = ext.pb_to_arrays(buf)
+
+        def fb(b, dt):
+            # empty C++ vectors surface as None through y# (null data ptr)
+            return (np.frombuffer(b, dt) if b
+                    else np.zeros(0, dt))
+        counts = fb(counts_b, np.int32)
+        pos = fb(pos_b, np.int32)
+        refn = fb(ref_b, np.int8)
+        parn = fb(par_b, np.int8)
+        mask = fb(mask_b, np.uint8)
+        ann_counts = fb(annc_b, np.int32)
+        ann_blob = ann_blob or b""
+        n, parent_b, names_blob, blen_b = ext.newick_to_arrays(newick)
+        parent = np.frombuffer(parent_b, np.int32)
+        blen = np.frombuffer(blen_b, np.float64)
+    else:
+        (newick, counts, pos, refn, parn, mask, chrom, condensed,
+         ann_counts, ann_blob) = _py_pb_to_arrays(buf)
+        n, parent, names_blob, blen = _py_newick_to_arrays(newick)
 
     if len(counts) != n:
         raise ValueError(f"pb node_mutations count {len(counts)} != "

@@ -3,8 +3,8 @@
 On-disk format identical to the reference
 (src/matOptimize/transpose_vcf/transposed_vcf.md + transpose_vcf.hpp:28-78):
 zlib blocks framed by u32 length; per sample: name, varint-packed called
-mutations (two alleles per byte), varint N ranges.  The port keeps only
-the pure-Python codec (the JAX package's native C++ one is ROADMAP A6c).
+mutations (two alleles per byte), varint N ranges.  Uses the compiled
+codec (native/) where it is built; the pure-Python one otherwise.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import struct
 import zlib
 
 
-# --- pure-Python codec -------------------------------------------------------
+# --- pure-Python codec (fallback + oracle) -----------------------------------
 
 def _write_varint(buf: bytearray, v: int) -> None:
     while v >= 0x80:
@@ -106,10 +106,19 @@ def _decode_py(path: str):
 def encode(samples, path: str, append: bool = False) -> None:
     """samples: iterable of (name, [(pos, allele_nibble)], [(start, end)])."""
     samples = [(n, list(m), list(r)) for n, m, r in samples]
-    _encode_py(samples, path, append)
+    from ..native import ext, HAVE_NATIVE
+    if HAVE_NATIVE:
+        ext.transpose_encode(samples, path, append)
+    else:
+        _encode_py(samples, path, append)
 
 
 def decode(path: str):
+    from ..native import ext, HAVE_NATIVE
+    if HAVE_NATIVE:
+        return [(n, [(int(p), int(a)) for p, a in m],
+                 [(int(s), int(e)) for s, e in r])
+                for n, m, r in ext.transpose_decode(path)]
     return _decode_py(path)
 
 
