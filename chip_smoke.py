@@ -125,6 +125,28 @@ these phases and fails (non-zero exit) if any of them fails:
                    usher-sampled's on those samples; each request's wall
                    and the device memory after it (the second request's
                    peak within 5% of the first's)
+  matutils_fixture every matUtils invocation of the port's CPU tests
+                   (tests/matutils_cases.py: each subcommand, with
+                   --pb-direct where it has one, the summary and extract
+                   goldens) on the card and in a CPU subprocess: exit
+                   codes, stdout and every file byte-equal; the goldens and
+                   the Tree == --pb-direct pairs hold on the card
+  matutils_realistic
+                   matUtils on the realistic pb: uncertainty -e -o on 1,024
+                   leaves by the Tree path (16 B1 launches) and by
+                   --pb-direct with USHER_TPU_GROUPED=1 (X6) and =0 (X5),
+                   byte-equal; annotate -c with 8 clades of its own
+                   subtrees; merge of the two trees usher --pb-direct makes
+                   of samples 0-255 and 256-511, Tree path == --pb-direct;
+                   per run its wall, launches, X6/X5 calls, host share and
+                   peak device memory
+  grouped_pandemic bench.py's replace_1m_grouped shape: a lineage-
+                   structured 1,000,000-node x 30,000-site BigMAT, 1,024 of
+                   its leaves in chunks of 512 and of 1,024:
+                   place_arrays_grouped (X6) == place_arrays (X5) on the
+                   full ancestral sets, ms a chunk of each, host grouping
+                   seconds, peak device memory, and at 1,024 where one
+                   call of each spends its device time (torch.profiler)
 
 Kernel against plain comparisons are exact (tolerance 0: the arithmetic is
 integer).  Every comparison covers the kernel with caller-given row sums and
@@ -144,8 +166,10 @@ which must launch neither B1 nor B2, and the matOptimize path
 programs are torch ops and which must launch none of the five, the
 usher-sampled path (sampled_fixture and sampled_realistic), whose B1
 launches must equal its PlacementEngine.score_samples calls (one a shard
-under a mesh), and the two servers (server_realistic, a window each:
-usher_server's -s request must launch B2).  The scanner phase launches
+under a mesh), the two servers (server_realistic, a window each:
+usher_server's -s request must launch B2), and the matUtils path
+(matutils_fixture and matutils_realistic), whose B1 launches must equal its
+PlacementEngine.score_samples calls.  The scanner phase launches
 nothing.  B1-3d has
 no caller on any path (its TPU counterpart has
 none either), so its main-path count is 0 and only the comparisons launch
@@ -1352,6 +1376,21 @@ def direct_spies(seen, times):
             setattr(owner, name, fn)
 
 
+@contextlib.contextmanager
+def patched_env(env):
+    """os.environ with the variables of `env` set, restored on exit."""
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def run_direct(argv, env=None):
     """The CLI with --pb-direct under direct_spies and with its standard
     error captured (and passed on): (wall s, library-call seconds, BigMAT
@@ -1359,18 +1398,10 @@ def run_direct(argv, env=None):
     import io
     seen, times = [], {}
     buf = io.StringIO()
-    old = {k: os.environ.get(k) for k in (env or {})}
-    os.environ.update(env or {})
     t0 = time.perf_counter()
-    try:
-        with direct_spies(seen, times), contextlib.redirect_stderr(buf):
-            run_cli([*argv, "--pb-direct"])
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    with patched_env(env), direct_spies(seen, times), \
+            contextlib.redirect_stderr(buf):
+        run_cli([*argv, "--pb-direct"])
     wall = time.perf_counter() - t0
     err = buf.getvalue()
     sys.stderr.write(err[-2000:])
@@ -1458,9 +1489,17 @@ def synth_bigmat(rng, N, P, n_mut=2, device=None):
     mutations: mut_par is the path state above the mutation (the mut of
     the nearest ancestor mutation in the same column, else ref), and mut
     is a different base.  Columns are distinct within a node."""
-    from usher_tpu_torch.core.bigmat import BigMAT
     parent = np.zeros(N, dtype=np.int32)
     parent[1:] = (rng.random(N - 1) * np.arange(1, N)).astype(np.int32)
+    return chain_bigmat(rng, parent, P, n_mut, device)
+
+
+def chain_bigmat(rng, parent, P, n_mut, device):
+    """A BigMAT over the topology `parent` (parents before children) with
+    n_mut chain-consistent branch mutations at distinct random columns a
+    non-root node (synth_bigmat's recipe)."""
+    from usher_tpu_torch.core.bigmat import BigMAT
+    N = len(parent)
     M = n_mut * (N - 1)
     mut_ptr = np.zeros(N + 1, dtype=np.int64)
     mut_ptr[2:] = n_mut * np.arange(1, N, dtype=np.int64)
@@ -2573,6 +2612,436 @@ def phase_server_realistic(kern, pb, vcf, n_samples):
     return res
 
 
+# --- matUtils (matutils/, cli/matutils_cli.py) -----------------------------
+
+# the device entry points of the matUtils modes, spied on from outside the
+# package: score_samples is one fused B1 launch a call (no mesh here)
+MU_ENTRY_POINTS = (("placement.driver", "PlacementEngine", "score_samples",
+                    "score_samples"),
+                   ("ops.interval", None, "interval_place_flatgrp_dev", "X6"),
+                   ("ops.interval", None, "interval_place_dev", "X5"),
+                   ("ops.interval", None, "interval_place", "X8"))
+
+
+@contextlib.contextmanager
+def matutils_spies(rec):
+    """rec[name] = [calls, synchronized ms] of each MU_ENTRY_POINTS entry
+    while the context is open."""
+    import importlib
+    saved = []
+    for mod, cls, attr, name in MU_ENTRY_POINTS:
+        m = importlib.import_module("usher_tpu_torch." + mod)
+        obj = getattr(m, cls) if cls else m
+        fn = getattr(obj, attr)
+        saved.append((obj, attr, fn))
+
+        def spy(*a, _fn=fn, _name=name, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            c = rec.setdefault(_name, [0, 0.0])
+            c[0] += 1
+            c[1] += (time.perf_counter() - t0) * 1e3
+            return out
+        setattr(obj, attr, spy)
+    try:
+        yield
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+
+
+def spy_calls(rec, before=None):
+    """{name: calls} of a matutils_spies record (since `before`)."""
+    before = before or {}
+    return {name: rec.get(name, [0])[0] - before.get(name, [0])[0]
+            for *_, name in MU_ENTRY_POINTS}
+
+
+class Captured:
+    """stdout of the CLI runs of a phase, read and cleared by each step
+    (matutils_cases.run_steps), and their stderr, of which the tail is
+    shown when a run fails."""
+
+    def __init__(self):
+        import io
+        self.out, self.err = io.StringIO(), io.StringIO()
+
+    def stdout(self):
+        text = self.out.getvalue()
+        self.out.seek(0)
+        self.out.truncate(0)
+        return text
+
+    @contextlib.contextmanager
+    def capture(self):
+        try:
+            with contextlib.redirect_stdout(self.out), \
+                    contextlib.redirect_stderr(self.err):
+                yield
+        except BaseException:
+            sys.stderr.write(self.err.getvalue()[-3000:])
+            raise
+
+
+def mkdir(path):
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+CPU_MATUTILS = """
+import contextlib, io, json, sys
+sys.path.insert(0, {tests!r})
+import matutils_cases as mc
+from usher_tpu_torch.cli.matutils_cli import main
+with open({plan!r}) as f:
+    plan = json.load(f)
+buf = io.StringIO()
+def stdout():
+    text = buf.getvalue()
+    buf.seek(0)
+    buf.truncate(0)
+    return text
+got = {{}}
+with contextlib.redirect_stdout(buf):
+    for case, d, steps in plan:
+        got[case] = mc.run_steps(main, d, steps, stdout)[0]
+with open({result!r}, "w") as f:
+    json.dump(got, f)
+"""
+
+# cases whose Tree path scores on the card through PlacementEngine (B1):
+# uncertainty, annotate (-c and -M), merge and extract -e
+MU_B1_CASES = ("uncertainty", "annotate_by_nid_and_sample_clades",
+               "annotate_clade_mutations", "merge", "extract_max_epps")
+
+
+def phase_matutils_fixture(kern):
+    """Every matUtils invocation of the port's CPU tests
+    (tests/matutils_cases.py: each subcommand, with --pb-direct where it
+    has one, and the summary and extract goldens) on the card, and again
+    in a CPU subprocess: exit codes, stdout and every output file
+    byte-equal; the goldens and each case's own Tree == --pb-direct pairs
+    hold on the card.  B1 launches == score_samples calls in every case,
+    > 0 for uncertainty, annotate, merge and extract -e; X6 ran for
+    uncertainty --pb-direct."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import matutils_cases as mc
+    from usher_tpu_torch.cli.matutils_cli import main as mu
+    out = os.path.join(WORK, "matutils_fixture")
+    fx = mc.Fixtures(lambda name: mkdir(os.path.join(out, "fx", name)),
+                     "cuda")
+    cap = Captured()
+    rec, plan, card, per_case = {}, [], {}, {}
+    t0 = time.perf_counter()
+    with matutils_spies(rec):
+        for case in sorted(mc.CASES):
+            with cap.capture():
+                spec = mc.CASES[case](mkdir(os.path.join(out, "in", case)),
+                                      fx)
+                cap.stdout()          # what building the inputs printed
+                before, calls0 = kern.counts(), dict(
+                    (k, list(v)) for k, v in rec.items())
+                got, files = mc.run_steps(
+                    mu, os.path.join(out, "cuda", case), spec["steps"],
+                    cap.stdout)
+            mc.check_run(spec, got, files)
+            after = kern.counts()
+            n = dict(spy_calls(rec, calls0),
+                     B1=after["B1"] - before["B1"],
+                     B2=after["B2"] - before["B2"])
+            if n["B1"] != n["score_samples"]:
+                raise AssertionError(f"matutils_fixture {case}: B1 launches "
+                                     f"{n['B1']} != score_samples calls "
+                                     f"{n['score_samples']}")
+            per_case[case] = n
+            card[case] = (json.loads(json.dumps(got)), files)
+            plan.append((case, os.path.join(out, "cpu", case),
+                         spec["steps"]))
+    card_s = time.perf_counter() - t0
+    for case in MU_B1_CASES:
+        if not per_case[case]["B1"]:
+            raise AssertionError(f"matutils_fixture {case}: no B1 launch")
+    if not per_case["uncertainty_pb_direct"]["X6"]:
+        raise AssertionError("uncertainty --pb-direct never reached X6")
+    plan_path = os.path.join(out, "plan.json")
+    result_path = os.path.join(out, "cpu.json")
+    with open(plan_path, "w") as f:
+        json.dump(plan, f)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", CPU_MATUTILS.format(
+        tests=os.path.join(REPO, "tests"), plan=plan_path,
+        result=result_path)],
+        env=dict(os.environ, USHER_TPU_PLATFORM="cpu", PYTHONPATH=REPO),
+        check=True, timeout=900, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL)
+    cpu_s = time.perf_counter() - t0
+    with open(result_path) as f:
+        cpu = json.load(f)
+    n_files = n_steps = 0
+    for case, (got, files) in card.items():
+        if cpu[case] != got:
+            raise AssertionError(f"matutils_fixture {case}: exit codes or "
+                                 "stdout differ between card and CPU")
+        if dir_files(os.path.join(out, "cpu", case)) != files:
+            raise AssertionError(f"matutils_fixture {case}: files differ "
+                                 "between card and CPU")
+        n_files += len(files)
+        n_steps += len(got)
+    totals = {k: sum(n[k] for n in per_case.values())
+              for k in next(iter(per_case.values()))}
+    return {"outputs": f"{len(card)} cases, {n_steps} invocations, "
+                       f"{n_files} files byte-equal, card and CPU; goldens "
+                       "and Tree == --pb-direct pairs hold on the card",
+            "card_s": card_s, "cpu_subprocess_s": cpu_s,
+            "device_cases": {c: n for c, n in per_case.items()
+                             if any(n.values())},
+            "totals": totals,
+            "device_ms": {k: round(v[1], 3) for k, v in rec.items()}}
+
+
+def mu_run(name, argv, kern, env=None):
+    """One matUtils CLI run on the card under matutils_spies: its wall,
+    kernel launches, entry-point calls and ms, the wall share outside
+    those calls (host_share: the calls hold host work of their own, so
+    it is a lower limit) and the peak device memory."""
+    from usher_tpu_torch.cli.matutils_cli import main as mu
+    rec = {}
+    cap = Captured()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = kern.counts()
+    t0 = time.perf_counter()
+    with patched_env(env), matutils_spies(rec), cap.capture():
+        rc = mu(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        sys.stderr.write(cap.err.getvalue()[-3000:])
+        raise AssertionError(f"matUtils {argv} returned {rc}")
+    after = kern.counts()
+    dev_ms = sum(v[1] for v in rec.values())
+    res = {"wall_s": wall,
+           "launches": {k: after[k] - before[k] for k in ("B1", "B2")},
+           "calls": spy_calls(rec),
+           "calls_ms": {k: round(v[1], 3) for k, v in rec.items()},
+           "host_share": 1 - dev_ms / 1e3 / wall,
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if res["launches"]["B1"] != res["calls"]["score_samples"]:
+        raise AssertionError(f"{name}: B1 launches {res['launches']} != "
+                             f"score_samples calls {res['calls']}")
+    log(f"  matutils_realistic {name}: {json.dumps(res)}")
+    return res
+
+
+def phase_matutils_realistic(kern, pb, vcf, n_leaves=1024, n_clades=8,
+                             n_merge=256):
+    """matUtils on the realistic pb: uncertainty -e -o on n_leaves of its
+    leaves by the Tree path (B1, batches of 64) and by --pb-direct with
+    USHER_TPU_GROUPED=1 (X6) and =0 (X5), all three byte-equal; annotate
+    -c with n_clades clades of the tree's own subtrees (one B1 launch a
+    clade); merge of the two trees that usher --pb-direct makes from the
+    pb with samples 0..n_merge-1 and n_merge..2*n_merge-1, by the Tree
+    path and by --pb-direct, byte-equal pbs.  Per run its wall, launches,
+    calls, host share and peak device memory."""
+    from usher_tpu_torch.io.pbio import load_mat_pb
+    out = mkdir(os.path.join(WORK, "matutils_realistic"))
+    rng = np.random.default_rng(12)
+    T = load_mat_pb(pb)
+    T.uncondense_leaves()
+    leaves = T.get_leaves_ids()
+    chosen = [leaves[i] for i in sorted(rng.choice(len(leaves), n_leaves,
+                                                   replace=False).tolist())]
+    sf = os.path.join(out, "samples.txt")
+    with open(sf, "w") as f:
+        f.write("".join(s + "\n" for s in chosen))
+    # clades: random internal nodes of 20..400 leaves, members all of them
+    size = {}
+    for node in reversed(T.breadth_first_expansion()):
+        size[node.identifier] = (1 if node.is_leaf() else
+                                 sum(size[c.identifier]
+                                     for c in node.children))
+    cands = [n for n, k in size.items() if 20 <= k <= 400 and k > 1]
+    picks = [cands[i] for i in rng.choice(len(cands), n_clades,
+                                          replace=False).tolist()]
+    clades = os.path.join(out, "clades.tsv")
+    with open(clades, "w") as f:
+        for k, nid in enumerate(picks):
+            for m in T.get_leaves_ids(nid):
+                f.write(f"clade_{k}\t{m}\n")
+    del T, size, cands
+    res = {"leaves": n_leaves, "clades": n_clades, "merge_new": n_merge}
+    res["uncertainty_tree"] = mu_run(
+        "uncertainty_tree", ["uncertainty", "-i", pb, "-s", sf, "-e",
+                             f"{out}/t_epps.tsv", "-o", f"{out}/t_locs.tsv"],
+        kern)
+    for g in ("1", "0"):
+        res[f"uncertainty_direct_grouped{g}"] = mu_run(
+            f"uncertainty_direct_grouped{g}",
+            ["uncertainty", "-i", pb, "-s", sf, "--pb-direct", "-e",
+             f"{out}/a{g}_epps.tsv", "-o", f"{out}/a{g}_locs.tsv"], kern,
+            env={"USHER_TPU_GROUPED": g})
+    same_files(out, out, [(f"t_{f}", f"a{g}_{f}") for f in (
+        "epps.tsv", "locs.tsv") for g in "10"])
+    want_b1 = -(-n_leaves // 64)
+    if res["uncertainty_tree"]["launches"]["B1"] != want_b1:
+        raise AssertionError(f"uncertainty: B1 launches "
+                             f"{res['uncertainty_tree']['launches']}, "
+                             f"expected {want_b1}")
+    if not res["uncertainty_direct_grouped1"]["calls"]["X6"] or \
+            res["uncertainty_direct_grouped0"]["calls"]["X6"]:
+        raise AssertionError("USHER_TPU_GROUPED did not pick X6 / X5")
+    res["annotate"] = mu_run(
+        "annotate", ["annotate", "-i", pb, "-o", f"{out}/ann.pb",
+                     "-c", clades], kern)
+    if res["annotate"]["launches"]["B1"] != n_clades:
+        raise AssertionError(f"annotate: launches "
+                             f"{res['annotate']['launches']}")
+    # the merge inputs: two --pb-direct placements of disjoint samples
+    t0 = time.perf_counter()
+    trees = []
+    for k in range(2):
+        sub = subset_vcf(vcf, os.path.join(out, f"merge{k}.vcf"),
+                         k * n_merge, n_merge)
+        trees.append(os.path.join(out, f"merge{k}.pb"))
+        with Captured().capture():
+            run_cli(["-i", pb, "-v", sub, "-o", trees[-1], "-d",
+                     os.path.join(out, f"merge{k}"), "--pb-direct"])
+    res["merge_inputs_s"] = time.perf_counter() - t0
+    res["merge_tree"] = mu_run(
+        "merge_tree", ["merge", "-1", trees[0], "-2", trees[1], "-o",
+                       f"{out}/mt.pb"], kern)
+    res["merge_direct"] = mu_run(
+        "merge_direct", ["merge", "-1", trees[0], "-2", trees[1],
+                         "--pb-direct", "-o", f"{out}/ma.pb"], kern)
+    same_files(out, out, [("mt.pb", "ma.pb")])
+    if not res["merge_tree"]["launches"]["B1"]:
+        raise AssertionError("merge (Tree path) launched no B1")
+    res["outputs"] = ("uncertainty Tree == --pb-direct grouped == plain "
+                      "(epps, locs); merge Tree == --pb-direct (pb)")
+    res["launches"] = {k: sum(r["launches"][k] for r in res.values()
+                              if isinstance(r, dict) and "launches" in r)
+                       for k in ("B1", "B2")}
+    return res
+
+
+def synth_lineage_bigmat(rng, N, P, device, n_lineages=64, stem=30,
+                         n_mut=2):
+    """bench.py's lineage-structured MAT (n_lineages stems of `stem`
+    chained branches below the root, each carrying a random recursive
+    subtree, so the tree's own leaves share their lineage's stem), with
+    synth_bigmat's chain-consistent mutations."""
+    parent = np.zeros(N, dtype=np.int32)
+    idx = 1
+    stem_end = np.zeros(n_lineages, np.int32)
+    for li in range(n_lineages):
+        prev = 0
+        for _ in range(stem):
+            parent[idx] = prev
+            prev = idx
+            idx += 1
+        stem_end[li] = prev
+    rem = N - idx
+    i_arr = np.arange(rem)
+    li_arr = i_arr % n_lineages
+    t_arr = i_arr // n_lineages
+    u = (rng.random(rem) * (t_arr + 1)).astype(np.int64)
+    parent[idx:] = np.where(u == 0, stem_end[li_arr],
+                            idx + (u - 1) * n_lineages + li_arr)
+    return chain_bigmat(rng, parent, P, n_mut, device)
+
+
+def device_profile(fn, top=6):
+    """One call of fn under torch.profiler: its device ms in all (the self
+    device time of the aten ops, which own the kernels they launch) and
+    the `top` ops by self device ms."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.key_averages():
+        if e.key.startswith("aten::"):
+            ops[e.key] = getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0)) / 1e3
+    ranked = sorted(ops.items(), key=lambda kv: -kv[1])
+    return {"device_ms": sum(ops.values()),
+            "top_ms": {k: round(v, 3) for k, v in ranked[:top]}}
+
+
+def phase_grouped_pandemic(device, n_nodes=1_000_000, n_sites=30_000,
+                           n_leaves=1024, min_group=3):
+    """bench.py's replace_1m_grouped shape: n_leaves of the lineage MAT's
+    own leaves re-placed in chunks of 512 and in one chunk of 1,024, by
+    place_arrays (X5) on their full ancestral sets and by
+    place_arrays_grouped (X6) on group_ancestral_batch's inputs:
+    bit-identical (winner and runner-up), ms a chunk of each (median of 3
+    passes), the host grouping seconds, the peak device memory of each;
+    at 1,024 a device profile of one call of each."""
+    from usher_tpu_torch.matutils.arrays import _ancestral_set_triplets
+    rng = np.random.default_rng(13)
+    t0 = time.perf_counter()
+    big = synth_lineage_bigmat(rng, n_nodes, n_sites, device)
+    res = {"N": big.N, "P": big.P, "build_s": time.perf_counter() - t0,
+           "max_occupancy": int(np.diff(big.csc_ptr).max()),
+           "leaves": n_leaves, "min_group": min_group}
+    slots = rng.choice(np.nonzero(big.is_leaf)[0], size=n_leaves,
+                       replace=False).tolist()
+
+    def full_inputs(chunk):
+        full = [_ancestral_set_triplets(big, s) for s in chunk]
+        K = max(len(f) for f in full)
+        pos = np.full((len(chunk), K), big.P, np.int32)
+        gval = np.zeros((len(chunk), K), np.uint8)
+        for i, f in enumerate(full):
+            for k, (c, v) in enumerate(f):
+                pos[i, k] = c
+                gval[i, k] = v
+        return pos, gval, np.zeros((len(chunk), K), bool)
+
+    for cb in (512, 1024):
+        chunks = [slots[o:o + cb] for o in range(0, n_leaves, cb)]
+        t0 = time.perf_counter()
+        grouped = [big.group_ancestral_batch(c, min_group=min_group)
+                   for c in chunks]
+        group_s = time.perf_counter() - t0
+        plain = [full_inputs(c) for c in chunks]
+        for pi, gi in zip(plain, grouped):
+            same_arrays(f"X6 vs X5 (chunk {cb})",
+                        [a for t in big.place_arrays_grouped(
+                            *gi, with_second=True) for a in t],
+                        [a for t in big.place_arrays(
+                            *pi, with_second=True) for a in t])
+        row = {"chunks": len(chunks), "group_host_s": group_s,
+               "K_full": max(p[0].shape[1] for p in plain),
+               "K_res": max(g[0].shape[1] for g in grouped),
+               "groups": sum(g[4].shape[0] for g in grouped),
+               "K_grp": max(g[4].shape[1] for g in grouped)}
+        for name, fn in (("x5", lambda: [big.place_arrays(*p)
+                                         for p in plain]),
+                         ("x6", lambda: [big.place_arrays_grouped(*g)
+                                         for g in grouped])):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            row[f"{name}_ms_per_chunk"] = median_ms(fn, runs=3) / len(chunks)
+            row[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if cb == n_leaves:
+            row["x5_profile"] = device_profile(lambda: big.place_arrays(
+                *plain[0]))
+            row["x6_profile"] = device_profile(
+                lambda: big.place_arrays_grouped(*grouped[0]))
+        res[f"chunk_{cb}"] = row
+        log(f"  grouped_pandemic chunk {cb}: {json.dumps(row)}")
+        del grouped, plain
+    res["checks"] = ("place_arrays_grouped == place_arrays (winner and "
+                     "runner-up 4-tuples) on every chunk of both sizes")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2723,6 +3192,23 @@ def main() -> int:
                    64)
     # ----------------------------------------------------------------------
 
+    # --- the matUtils path: the counters cover its fixture and realistic ---
+    # --- runs on the card (B1 == score_samples calls, checked per run) -----
+    kern.reset_counts()
+    mu_fx = phase("matutils_fixture", phase_matutils_fixture, kern)
+    mu_real = phase("matutils_realistic", phase_matutils_realistic, kern, pb,
+                    vcf)
+    mu_counts = kern.counts()
+    log(f"matUtils path launches: {json.dumps(mu_counts)}")
+    mu_calls = mu_fx["totals"]["score_samples"] + sum(
+        r["calls"]["score_samples"] for r in mu_real.values()
+        if isinstance(r, dict) and "calls" in r)
+    if mu_counts["B1"] != mu_calls or not mu_calls:
+        raise AssertionError(f"matUtils path: B1 launches {mu_counts} != "
+                             f"score_samples calls {mu_calls}")
+    # ----------------------------------------------------------------------
+    phase("grouped_pandemic", phase_grouped_pandemic, device)
+
     for banned in ("jax", "jaxlib", "usher_tpu"):
         if any(m == banned or m.startswith(banned + ".")
                for m in sys.modules):
@@ -2794,7 +3280,7 @@ def main() -> int:
               "usher_tpu/ops/placement_pallas.py:176", counts["B1"],
               max(kern.err["B1"], kern.err["B1 fused"]), *genome_ms["B1"],
               genome_bound["B1"], shape="kernel_genome", **fused("B1"),
-              **new_paths["B1"]),
+              matutils_path_launches=mu_counts["B1"], **new_paths["B1"]),
         entry("B2 placement_reduce",
               "usher_tpu/ops/placement_pallas.py:119", counts["B2"],
               max(kern.err["B2"], kern.err["B2 fused"]), *genome_ms["B2"],

@@ -321,16 +321,14 @@ def test_big_engine_mesh_is_flattened_and_scores_alike():
 
 
 def test_unported_branches_raise(monkeypatch):
-    """The segment-query kernel (X9) and the grouped engine (X6) raise
-    instead of running something else; a batch mesh itself scores and
-    places (test_bigmat_mesh_identical) and searches SPR moves
-    (test_torch_spr_big.py::test_sharded_spr_search_matches)."""
+    """The segment-query kernel (X9) raises instead of running something
+    else; a batch mesh itself scores and places
+    (test_bigmat_mesh_identical) and searches SPR moves
+    (test_torch_spr_big.py::test_sharded_spr_search_matches), and the
+    grouped engine (X6) is held against the JAX one in
+    test_torch_grouped.py."""
     jb, tb, samples, _ = _pair(5)
     pos, gval, kmiss = tb.sparsify(samples)
-    with pytest.raises(NotImplementedError, match="X6"):
-        tb.place_arrays_grouped(pos, gval, kmiss)
-    with pytest.raises(NotImplementedError, match="X6"):
-        tb.group_ancestral_batch([1, 2])
     monkeypatch.setenv("USHER_TPU_SEG", "1")
     with pytest.raises(NotImplementedError, match="X9"):
         tb.place_arrays(pos, gval, kmiss)

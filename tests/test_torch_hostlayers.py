@@ -612,3 +612,61 @@ def test_diff_and_patch_match(tmp_path):
     assert tpatch.patch_mat_from_transposed_vcf(P, tv) == \
         jpatch.patch_mat_from_transposed_vcf(T, tv)
     assert tree_signature(P) == tree_signature(T)
+
+
+@pytest.mark.parametrize("module,changed", [
+    ("io.fatovcf", set()),
+    ("matutils.describe", set()),
+    ("matutils.fix", set()),
+    ("matutils.summary", set()),
+    ("matutils.convert", set()),
+    ("matutils.convert_arrays", set()),
+    # whole copies now (rotate_for_display and get_subtree were the only
+    # pieces before)
+    ("matutils.translate", set()),
+    ("matutils.tree_filter", set()),
+    ("matutils.translate_arrays", set()),
+    ("matutils.extract", set()),
+    ("matutils.introduce", set()),
+    ("matutils.introduce_arrays", set()),
+    ("matutils.select", set()),
+    ("matutils.mask", set()),
+    ("matutils.uncertainty", set()),
+    ("matutils.annotate", set()),
+    ("matutils.merge", set()),
+    # the host tie and restricted scores index the port's exact-N DFS rows
+    # (its dump row is N, where the JAX BigMAT padded to n_pad)
+    ("matutils.arrays", {"_host_tie_slots"}),
+    ("matutils.merge_arrays", {"_host_restricted_score"}),
+    # the help and version lines name the port
+    ("cli.matutils_cli", {"main"})])
+def test_matutils_slice_copies_keep_the_code(module, changed):
+    """Each function of the matUtils slice is its original's, apart from
+    the named ones (what tests/test_torch_matutils.py holds against the
+    JAX CLI)."""
+    import importlib
+    rel = module.replace(".", os.sep) + ".py"
+    jmod = importlib.import_module("usher_tpu." + module)
+    tmod = importlib.import_module("usher_tpu_torch." + module)
+    want = _code_by_name(os.path.join(os.path.dirname(jmod.__file__),
+                                      os.path.basename(rel)))
+    got = _code_by_name(os.path.join(os.path.dirname(tmod.__file__),
+                                     os.path.basename(rel)))
+    assert sorted(got) == sorted(want)
+    assert {name for name in want if got[name] != want[name]} == changed
+
+
+def test_group_ancestral_batch_is_the_original():
+    """X6's host side, BigMAT.group_ancestral_batch and the functions
+    nested in it, is the JAX package's code (its device side,
+    place_arrays_grouped, is held against the JAX one in
+    tests/test_torch_grouped.py)."""
+    import usher_tpu.core.bigmat as jbm
+    from usher_tpu_torch.core import bigmat as tbm
+    want = _code_by_name(jbm.__file__)
+    got = _code_by_name(tbm.__file__)
+    names = [n for n in want
+             if n.startswith("BigMAT.group_ancestral_batch")]
+    assert len(names) >= 7
+    for name in names:
+        assert got[name] == want[name], name

@@ -17,6 +17,7 @@ PORT_MODULES = [
     "usher_tpu_torch",
     "usher_tpu_torch.cli.usher_cli",
     "usher_tpu_torch.cli.matoptimize_cli",
+    "usher_tpu_torch.cli.matutils_cli",
     "usher_tpu_torch.cli.usher_sampled_cli",
     "usher_tpu_torch.cli.usher_server_cli",
     "usher_tpu_torch.cli.usher_socket_server_cli",
@@ -26,6 +27,25 @@ PORT_MODULES = [
     "usher_tpu_torch.io.patch",
     "usher_tpu_torch.io.transpose",
     "usher_tpu_torch.io.pb_arrays",
+    "usher_tpu_torch.io.fatovcf",
+    "usher_tpu_torch.matutils.annotate",
+    "usher_tpu_torch.matutils.arrays",
+    "usher_tpu_torch.matutils.convert",
+    "usher_tpu_torch.matutils.convert_arrays",
+    "usher_tpu_torch.matutils.describe",
+    "usher_tpu_torch.matutils.extract",
+    "usher_tpu_torch.matutils.fix",
+    "usher_tpu_torch.matutils.introduce",
+    "usher_tpu_torch.matutils.introduce_arrays",
+    "usher_tpu_torch.matutils.mask",
+    "usher_tpu_torch.matutils.merge",
+    "usher_tpu_torch.matutils.merge_arrays",
+    "usher_tpu_torch.matutils.select",
+    "usher_tpu_torch.matutils.summary",
+    "usher_tpu_torch.matutils.translate",
+    "usher_tpu_torch.matutils.translate_arrays",
+    "usher_tpu_torch.matutils.tree_filter",
+    "usher_tpu_torch.matutils.uncertainty",
     "usher_tpu_torch.native",
     "usher_tpu_torch.native._build",
     "usher_tpu_torch.ops.interval",
@@ -97,11 +117,13 @@ def _import_lines(path):
 
 
 def test_no_source_line_imports_the_jax_package():
-    """No import statement of the port or of chip_smoke.py names usher_tpu,
+    """No import statement of the port, of chip_smoke.py or of the matUtils
+    cases it runs (tests/matutils_cases.py) names usher_tpu,
     jax or triton at module level or inside a function (triton may only be
     imported inside the function that launches a Triton kernel; there is
     none yet)."""
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "matutils_cases.py")]
     for root, _, names in os.walk(os.path.join(REPO, "usher_tpu_torch")):
         paths += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(paths) > 20

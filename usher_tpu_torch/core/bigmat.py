@@ -28,8 +28,12 @@ With ``mesh`` set (a 1-D parallel.mesh.Mesh) ``score_batch_T``,
 of a batch over the mesh's devices, each of which holds a copy of the epoch
 metadata and runs the host-expansion engine (X8) on its samples.
 
+``place_arrays_grouped`` scores a batch of the tree's own leaves through
+the shared-ancestry grouped engine (X6), with inputs from
+``group_ancestral_batch`` (the JAX module's numpy, verbatim).
+
 Not ported yet, and raising NotImplementedError: the segment-query kernel
-selected by USHER_TPU_SEG (X9) and the shared-ancestry grouped engine (X6).
+selected by USHER_TPU_SEG (X9).
 """
 
 from __future__ import annotations
@@ -46,6 +50,11 @@ from ..utils.device import apply_platform_env
 # widest column occupancy that place_arrays expands on the device (the
 # [B, K, mc] pair grid); wider batches take the host-expansion path (X8)
 DEV_MAX_OCCUPANCY = 8192
+# widest column occupancy that place_arrays_grouped expands: the JAX engine
+# rounds the occupancy up a x1.5 ladder from 32 and raises past 8192, which
+# is every occupancy above its rung 6,216; the port pads nothing but keeps
+# the raise on the same batches, since its callers fall back on it
+GROUPED_MAX_OCCUPANCY = 6216
 
 
 class BigMAT:
@@ -1235,13 +1244,302 @@ class BigMAT:
                                     with_second=with_second,
                                     clades=clades))
 
-    def place_arrays_grouped(self, *args, **kwargs):
-        raise NotImplementedError(
-            "shared-ancestry grouped scoring is not ported yet (ROADMAP X6)")
+    def place_arrays_grouped(self, pos, gval, kmiss, sgn,
+                             gpos, ggval, gkmiss, gsgn, grp_of,
+                             closure=None, with_second: bool = False):
+        """Exact placement scoring by the shared-ancestry decomposition
+        (X6, ops/interval.interval_place_flatgrp_dev): group rows carry the
+        entry lists that many samples share, expanded and scattered once a
+        group; sample rows carry only signed residuals; grp_of maps each
+        sample to its anchor, whose chain of group columns one closure
+        product sums.  Equal to place_arrays on the reconstructed full
+        entry sets (tests/test_torch_grouped.py).  Inputs come from
+        group_ancestral_batch (bulk re-scoring of the tree's own leaves:
+        EPPs, uncertainty).
 
-    def group_ancestral_batch(self, *args, **kwargs):
-        raise NotImplementedError(
-            "shared-ancestry grouped scoring is not ported yet (ROADMAP X6)")
+        Raises ValueError where the JAX engine does, so that its callers
+        take place_arrays: an epoch with incremental appends (overlay), a
+        batch mesh, or a column occupancy past GROUPED_MAX_OCCUPANCY.
+        Nothing is padded: the scan is [N + 1, B + G] and the entry list
+        holds exactly the real entries."""
+        self._flush()
+        if self._ov is not None:
+            raise ValueError("grouped scoring requires an overlay-free "
+                             "epoch (score before incremental appends)")
+        if self.mesh is not None:
+            raise ValueError("grouped scoring is not composed with the "
+                             "mesh path")
+        B, G = pos.shape[0], gpos.shape[0]
+        meta = self._dfs_meta(spr=False)
+        margs = (meta["num_mut"], meta["is_leaf"], meta["is_root"],
+                 meta["active"], meta["num_leaves"], meta["bfs_rank"])
+        allpos = np.concatenate([pos.reshape(-1), gpos.reshape(-1)])
+        e = allpos < self.P
+        if e.any():
+            cnts = self.csc_ptr[allpos[e] + 1] - self.csc_ptr[allpos[e]]
+            mx = int(cnts.max())
+        else:
+            mx = 0
+        if mx > GROUPED_MAX_OCCUPANCY:
+            raise ValueError(f"column occupancy {mx} exceeds the device "
+                             f"expansion bound; use place_arrays")
+
+        # one row a real entry with its target scan column
+        def flat(p, gv, km, sg, col_of_row):
+            m = p < self.P
+            rows, ks = np.nonzero(m)
+            return (p[rows, ks], gv[rows, ks], km[rows, ks],
+                    sg[rows, ks], col_of_row[rows])
+
+        rcols = np.arange(B, dtype=np.int32)
+        gcols = B + np.arange(G, dtype=np.int32)
+        parts = [flat(pos.astype(np.int32), gval, kmiss, sgn, rcols),
+                 flat(gpos.astype(np.int32), ggval, gkmiss, gsgn, gcols)]
+        epos, egval, ekmiss, esgn, ecol = (
+            np.concatenate([a[k] for a in parts]) for k in range(5))
+        cl = (np.eye(G, dtype=np.float32) if closure is None
+              else np.asarray(closure, np.float32))
+        out = iv.interval_place_flatgrp_dev(
+            *self._csc_dev(),
+            self._t(epos.reshape(-1, 1)), self._t(egval.reshape(-1, 1)),
+            self._t(ekmiss.reshape(-1, 1)), self._t(esgn.reshape(-1, 1)),
+            self._t(ecol.astype(np.int32)),
+            self._t(np.asarray(grp_of, np.int32)), self._t(cl),
+            meta["base"], meta["nc_base"], *margs,
+            self.N, B, G, max(1, mx), second=with_second)
+        return self.place_arrays_finish(
+            ("dev", (out, None, B, with_second, self.dfs_order, self.N)))
+
+    def group_ancestral_batch(self, slots, min_group: int = 2,
+                              gcap: int = 0):
+        """Shared-ancestry inputs for place_arrays_grouped from a batch of
+        EXISTING node slots (re-placement workloads: the sample set is the
+        tree's own leaves, whose genotypes share every root-path mutation
+        above their batch LCAs).
+
+        HIERARCHICAL anchor forest: anchors are the LCA-compressed virtual
+        tree's nodes covering >= min_group batch slots (closed under the
+        virtual parent relation).  Each anchor's group row carries only
+        the signed DELTA of its ancestral entry set vs its parent
+        anchor's; the device resolves full chain sums with one [N, G]
+        x [G, G] closure matmul (ops/interval.py) — so a deep stem's
+        mutations expand ONCE regardless of how many sub-anchors hang
+        below it.  Sample rows carry the signed residual vs their own
+        anchor's full set: +(col, value) for entries the anchor lacks,
+        -(col, anchor value) where the below-path overrides one
+        (back-mutations) — an exact linear split of the entry multiset.
+
+        Returns (pos, gval, kmiss, sgn, gpos, ggval, gkmiss, grp_of,
+        closure)."""
+        self._flush()
+        slots = [int(s) for s in slots]
+        B = len(slots)
+        parent = self.parent
+        dfs_of, dfs_end_of = self.dfs_of, self.dfs_end_of
+        level = self.level
+
+        def lca(a, b):
+            while level[a] > level[b]:
+                a = int(parent[a])
+            while level[b] > level[a]:
+                b = int(parent[b])
+            while a != b:
+                a = int(parent[a])
+                b = int(parent[b])
+            return a
+
+        uniq_slots = sorted(set(slots), key=lambda s: dfs_of[s])
+        kept = set(uniq_slots)
+        for a, b in zip(uniq_slots, uniq_slots[1:]):
+            kept.add(lca(a, b))
+        vnodes = sorted(kept, key=lambda s: dfs_of[s])
+        vidx = {v: i for i, v in enumerate(vnodes)}
+        vpar = [-1] * len(vnodes)
+        stack: list[int] = []
+        for i, v in enumerate(vnodes):
+            d = dfs_of[v]
+            while stack and not (dfs_of[vnodes[stack[-1]]] <= d
+                                 < dfs_end_of[vnodes[stack[-1]]]):
+                stack.pop()
+            vpar[i] = stack[-1] if stack else -1
+            stack.append(i)
+        counts = [0] * len(vnodes)
+        for s in slots:
+            counts[vidx[s]] += 1
+        for i in range(len(vnodes) - 1, -1, -1):
+            if vpar[i] >= 0:
+                counts[vpar[i]] += counts[i]
+        is_anchor = [counts[i] >= min_group for i in range(len(vnodes))]
+
+        def anchor_vi(i):
+            """Deepest anchor at-or-above virtual node i (-1 if none)."""
+            while i >= 0 and not is_anchor[i]:
+                i = vpar[i]
+            return i
+
+        anchor_of = {}   # virtual index -> anchor virtual index
+        for s in set(slots):
+            anchor_of[vidx[s]] = anchor_vi(vidx[s])
+        # ALL qualifying anchors, not just directly-used ones: counts are
+        # monotone up the virtual tree, so this set is closed under the
+        # parent-anchor relation — every chain ancestor holds its delta
+        # row and the closure matmul telescopes exactly
+        a_list = [i for i in range(len(vnodes)) if is_anchor[i]]
+        if not a_list:
+            # batch too small/diverse for any shared anchor: one empty
+            # group keeps the call shape valid
+            gid_of = np.zeros(B, np.int32)
+            kr = 1
+            closure = np.eye(1, dtype=np.float32)
+            grp_rows = [[]]
+        else:
+            gid = {a: i for i, a in enumerate(a_list)}
+            gid_of = np.array(
+                [gid[anchor_of[vidx[s]]] if anchor_of[vidx[s]] >= 0 else 0
+                 for s in slots], np.int32)
+            closure = np.zeros((len(a_list), len(a_list)), np.float32)
+            for a, g in gid.items():
+                x = a
+                while x >= 0:
+                    if is_anchor[x]:
+                        closure[gid[x], g] = 1.0
+                    x = vpar[x]
+
+        def anc_entries(slot):
+            """Nearest CSR value per column from slot up; non-ref only."""
+            seen: dict[int, int] = {}
+            x = slot
+            while True:
+                for j in range(int(self.mut_ptr[x]),
+                               int(self.mut_ptr[x + 1])):
+                    c = int(self.mut_col[j])
+                    if c not in seen:
+                        seen[c] = int(self.mut_mut[j])
+                p = int(parent[x])
+                if p == x:
+                    break
+                x = p
+            return {c: v for c, v in seen.items() if v != int(self.ref[c])}
+
+        def delta_rows(su, sp_set):
+            """Signed entry delta turning set(parent) into set(u)."""
+            gu = anc_entries(su)
+            row = []
+            for c, v in gu.items():
+                if sp_set.get(c) != v:
+                    row.append((c, v, 1))
+            for c, vp in sp_set.items():
+                if gu.get(c) != vp:
+                    row.append((c, vp, -1))
+            return gu, row
+
+        if a_list:
+            a_sets: list[dict] = [None] * len(a_list)
+            grp_rows = [None] * len(a_list)
+            for g, a in enumerate(a_list):   # parents precede children
+                pa = anchor_vi(vpar[a]) if vpar[a] >= 0 else -1
+                p_set = a_sets[gid[pa]] if pa >= 0 else {}
+                a_sets[g], grp_rows[g] = delta_rows(vnodes[a], p_set)
+
+        def residual(s, a_slot, ga):
+            below: dict[int, int] = {}
+            x = s
+            while x != a_slot:
+                for j in range(int(self.mut_ptr[x]),
+                               int(self.mut_ptr[x + 1])):
+                    c = int(self.mut_col[j])
+                    if c not in below:
+                        below[c] = int(self.mut_mut[j])
+                x = int(parent[x])
+            row = []
+            for c, v in below.items():
+                ea = ga.get(c)
+                if v != int(self.ref[c]) and v != ea:
+                    row.append((c, v, 1))
+                if ea is not None and ea != v:
+                    row.append((c, ea, -1))
+            return row
+
+        if a_list:
+            res_rows = [residual(s, vnodes[a_list[gid_of[i]]],
+                                 a_sets[gid_of[i]])
+                        for i, s in enumerate(slots)]
+        else:
+            full = [anc_entries(s) for s in slots]
+            res_rows = [[(c, v, 1) for c, v in sorted(f.items())]
+                        for f in full]
+
+        def pack(rows, width):
+            R = len(rows)
+            pos = np.full((R, width), self.P, np.int32)
+            gv = np.zeros((R, width), np.uint8)
+            sg = np.ones((R, width), np.int8)
+            for i, row in enumerate(rows):
+                for k, (c, v, sgn_v) in enumerate(row):
+                    pos[i, k] = c
+                    gv[i, k] = v
+                    sg[i, k] = sgn_v
+            return pos, gv, np.zeros((R, width), bool), sg
+
+        # straggler privatization: a sample with no shared anchor (alone
+        # in its lineage within this batch) keeps a near-full residual,
+        # and the rectangular [B, K_res] grid charges EVERY sample for
+        # the worst row — move such residuals into a PRIVATE anchor
+        # column chained under the sample's current anchor (column copy
+        # in the closure); the gcap splitter below then bounds its width
+        # like any other group row
+        if a_list:
+            rcap = 2 * gcap if gcap > 0 else 0
+            if rcap:
+                Gr0 = len(grp_rows)
+                movers = [(i, int(gid_of[i]), row)
+                          for i, row in enumerate(res_rows)
+                          if len(row) > rcap]
+                if movers:
+                    G2 = Gr0 + len(movers)
+                    cl2 = np.zeros((G2, G2), np.float32)
+                    cl2[:Gr0, :Gr0] = closure
+                    for q, (i, g_old, row) in enumerate(movers):
+                        gn = Gr0 + q
+                        cl2[:Gr0, gn] = closure[:Gr0, g_old]
+                        cl2[gn, gn] = 1.0
+                        grp_rows.append(row)
+                        gid_of[i] = gn
+                        res_rows[i] = []
+                    closure = cl2
+
+        # cap group-row width: a long delta (a deep lineage stem) would
+        # rectangularize the whole [G, K_grp] grid — split it into a
+        # CHAIN of pseudo-anchor rows instead; a pseudo row sits between
+        # parent(g) and g on every chain through g, so its closure row is
+        # a copy of g's (its entries join exactly the sums g's do)
+        if a_list and gcap > 0:
+            Gr = len(grp_rows)
+            extra_rows, extra_src = [], []
+            for g in range(Gr):
+                row = grp_rows[g]
+                if len(row) > gcap:
+                    segs = [row[i:i + gcap]
+                            for i in range(0, len(row), gcap)]
+                    grp_rows[g] = segs[0]
+                    for sgm in segs[1:]:
+                        extra_rows.append(sgm)
+                        extra_src.append(g)
+            if extra_rows:
+                G2 = Gr + len(extra_rows)
+                cl2 = np.zeros((G2, G2), np.float32)
+                cl2[:Gr, :Gr] = closure
+                for q, g in enumerate(extra_src):
+                    cl2[Gr + q, :Gr] = closure[g, :Gr]
+                closure = cl2
+                grp_rows = grp_rows + extra_rows
+
+        kr = max((len(r) for r in res_rows), default=0) or 1
+        kg = max((len(g) for g in grp_rows), default=0) or 1
+        pos, gval, kmiss, sgn = pack(res_rows, kr)
+        gpos, ggval, gkmiss, gsgn = pack(grp_rows, kg)
+        return (pos, gval, kmiss, sgn, gpos, ggval, gkmiss, gsgn,
+                gid_of, closure)
 
     def place_arrays_finish(self, handle):
         """Wait for a place_arrays_begin handle and unpack.  The DFS-row

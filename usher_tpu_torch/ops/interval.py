@@ -18,6 +18,12 @@ itself.  Everything here is plain torch on the device of its inputs:
   X5 ``interval_place_dev``
                            the events expanded on the device from the
                            resident CSC index, then the same reduction
+  X6 ``interval_place_flatgrp_dev``
+                           shared-ancestry grouped placement: one flat,
+                           signed entry list of sample residuals and group
+                           rows, one scan over B + G columns, each sample
+                           summing its anchor chain's group columns by a
+                           closure product (``_closure_combine``)
   X7 ``interval_spr`` / ``interval_spr_dev`` / ``_spr_sharded_fn``
                            the SPR destination search (optimize/spr_big.py):
                            a source's ancestor-interval count rides in extra
@@ -223,11 +229,17 @@ def _expand_events(csc_ptr, csc_node, csc_meta, pos, gval, kmiss, P: int,
 
 def _entry_deltas(csc_ptr, csc_node, csc_meta, dfs_of, dfs_end_of,
                   ref_cols, pos, gval, kmiss, n_pad: int, mc: int,
-                  spr: bool):
+                  spr: bool, sgn=None, col_offset: int = 0, col_index=None):
     """Expansion + delta evaluation for one entry batch (the case analysis
     of core/bigmat.py _events): returns (r, rend, flat_b, d_range,
     d_point, d_nc, add0) ready to scatter, with r/rend on the dump row
-    n_pad for masked pairs."""
+    n_pad for masked pairs.
+
+    sgn [B, K] (+1/-1 an entry, int8) negates an entry's contributions
+    (the signed residuals of the shared-ancestry decomposition, X6);
+    col_offset shifts the scatter columns; col_index [B] replaces the
+    row -> column iota altogether (X6's flat entry list: every row is one
+    entry with its own target column)."""
     P = ref_cols.shape[0]
     B, K = pos.shape
     u, am, ap, rootm, effm, pair_ok, gv, km = _expand_events(
@@ -261,16 +273,25 @@ def _entry_deltas(csc_ptr, csc_node, csc_meta, dfs_of, dfs_end_of,
                        matched.to(torch.int32)
                        - ((rk & am) != 0).to(torch.int32), 0)
     ok = pair_ok.to(torch.int32)
+    if sgn is not None:
+        sgn = sgn.to(torch.int32)      # int8 * int32 products in int32
+        ok = ok * sgn[:, :, None]
     d_range = d_range * ok
     d_point = d_point * ok
     d_nc = d_nc * ok
 
     r = torch.where(pair_ok, dfs_of.long()[u], n_pad)
     rend = torch.where(pair_ok, dfs_end_of.long()[u], n_pad)
-    flat_b = torch.arange(B, device=pos.device)[:, None, None].expand(
-        B, K, mc)
-    add0 = (~kmiss & valid_e
-            & ((gval.to(torch.int32) & rk_e) == 0)).sum(1, dtype=torch.int32)
+    if col_index is not None:
+        flat_b = col_index.long()[:, None, None].expand(B, K, mc)
+    else:
+        flat_b = (torch.arange(B, device=pos.device)
+                  + col_offset)[:, None, None].expand(B, K, mc)
+    add0_ind = (~kmiss & valid_e
+                & ((gval.to(torch.int32) & rk_e) == 0)).to(torch.int32)
+    if sgn is not None:
+        add0_ind = add0_ind * sgn
+    add0 = add0_ind.sum(1, dtype=torch.int32)
     return r, rend, flat_b, d_range, d_point, d_nc, add0
 
 
@@ -339,6 +360,80 @@ def interval_place_dev(csc_ptr, csc_node, csc_meta, dfs_of, dfs_end_of,
     return _finish_place(score, nc, num_mut_dfs, is_leaf_dfs, is_root_dfs,
                          active_dfs, num_leaves_dfs, bfs_rank_dfs,
                          second=second, clades=clades)
+
+
+# --- X6: shared-ancestry grouped placement ---------------------------------
+
+EXACT_F32 = 1 << 24   # integers below this are exact in float32
+
+
+def _closure_combine(x, M):
+    """x [R, G] int32 @ M [G, B] (0/1 float32) -> [R, B] int32, exactly.
+
+    torch has no integer matmul on CUDA, so the product runs in float32
+    with TF32 off (as JAX's Precision.HIGHEST).  It is exact while every
+    partial sum stays below 2^24 in magnitude, whatever the order of the
+    sum: a row's absolute sum times M's largest entry bounds them all, and
+    a batch past it raises instead of rounding."""
+    if x.shape[1] == 0:
+        return torch.zeros((x.shape[0], M.shape[1]), dtype=torch.int32,
+                           device=x.device)
+    bound = int(x.abs().sum(1, dtype=torch.int64).max()) * int(M.abs().max())
+    if bound >= EXACT_F32:
+        raise OverflowError(f"closure combine: partial sums up to {bound} "
+                            f"are not exact in float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.matmul(x.to(torch.float32), M).to(torch.int32)
+
+
+def interval_place_flatgrp_dev(csc_ptr, csc_node, csc_meta, dfs_of,
+                               dfs_end_of, ref_cols,
+                               epos, egval, ekmiss, esgn, ecol, grp_of,
+                               closure,
+                               base_dfs, nc_base_dfs,
+                               num_mut_dfs, is_leaf_dfs, is_root_dfs,
+                               active_dfs, num_leaves_dfs, bfs_rank_dfs,
+                               n_pad: int, b_pad: int, g_pad: int,
+                               mc: int, second: bool = False):
+    """X6: shared-ancestry scoring over one flat entry list.  Every entry,
+    residual and group alike, is an [E, 1] row with an explicit target
+    scan column ecol [E] (0..b_pad-1 the samples, b_pad.. the group
+    columns) and a sign esgn [E].  One expansion of E x mc pairs, one set
+    of scatters into [n_pad + 1, b_pad + g_pad] (row n_pad the dump row),
+    one scan; then sample b adds the scanned columns of every group on its
+    anchor chain, closure[:, grp_of[b]] (_closure_combine), and the
+    winners are reduced as in X5 (_finish_place).  Equal to X5 on the
+    reconstructed full entry sets (tests)."""
+    r, rend, flat_b, d_range, d_point, d_nc, add0_e = _entry_deltas(
+        csc_ptr, csc_node, csc_meta, dfs_of, dfs_end_of, ref_cols,
+        epos, egval, ekmiss, n_pad, mc, False, sgn=esgn, col_index=ecol)
+    dev = base_dfs.device
+    width = b_pad + g_pad
+    diff = torch.zeros((n_pad + 1, width), dtype=torch.int32, device=dev)
+    _scatter_add(diff, r, flat_b, d_range + d_point)
+    _scatter_add(diff, rend, flat_b, -d_range)
+    _scatter_add(diff, (r + 1).clamp(max=n_pad), flat_b, -d_point)
+    ncd = torch.zeros((n_pad + 1, width), dtype=torch.int32, device=dev)
+    _scatter_add(ncd, r, flat_b, d_nc)
+    del r, rend, flat_b, d_range, d_point, d_nc
+    run = _scan_rows(diff[:n_pad])
+    del diff
+    add0 = torch.zeros(width, dtype=torch.int32, device=dev)
+    add0.index_add_(0, ecol.long(), add0_e)
+    M = closure.to(torch.float32)[:, grp_of.long()]          # [g_pad, b_pad]
+    score = run[:, :b_pad] + _closure_combine(run[:, b_pad:], M)
+    del run
+    nc = ncd[:n_pad, :b_pad] + _closure_combine(ncd[:n_pad, b_pad:], M)
+    del ncd
+    # the [g_pad] group add0 through the closure in int64 (exact)
+    add0_c = add0[:b_pad] + (add0[b_pad:].long()[:, None]
+                             * M.long()).sum(0).to(torch.int32)
+    score += base_dfs[:, None]
+    score += add0_c[None, :]
+    nc += nc_base_dfs[:, None]
+    return _finish_place(score, nc, num_mut_dfs, is_leaf_dfs, is_root_dfs,
+                         active_dfs, num_leaves_dfs, bfs_rank_dfs,
+                         second=second)
 
 
 def pad_events(idx, b, val, n_pad: int):
