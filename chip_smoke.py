@@ -74,8 +74,10 @@ these phases and fails (non-zero exit) if any of them fails:
                    to --bigmat -u -o (uncondensed tree and saved pb),
                    unsharded and with --mesh-devices 4
   direct_realistic the realistic pb and 1,024 samples through --pb-direct -s
-                   --batch-size 64, synchronous and with
-                   USHER_TPU_DIRECT_PIPE=1: byte-identical to realistic_e2e;
+                   --batch-size 64, synchronous, with
+                   USHER_TPU_DIRECT_PIPE=1 and, synchronous again, with
+                   USHER_TPU_SEG=1 (scoring through X9, its calls counted):
+                   byte-identical to realistic_e2e;
                    per mode the CLI wall, set-up (pb parse, VCF, BigMAT
                    build), place_all and where its time goes (sort
                    pre-pass, device scoring calls, host corrections,
@@ -147,6 +149,36 @@ these phases and fails (non-zero exit) if any of them fails:
                    full ancestral sets, ms a chunk of each, host grouping
                    seconds, peak device memory, and at 1,024 where one
                    call of each spends its device time (torch.profiler)
+  seg_pandemic     X9 (ops/interval.py::interval_place_seg_dev, place_arrays
+                   under USHER_TPU_SEG=1) against X5 on bigmat_pandemic's
+                   1M-node BigMAT (after optimize_pandemic, which cannot
+                   take the overlay this phase appends): 1,024 samples of
+                   24 entries in 32 slots, every output field equal without
+                   and with the runner-up, again after an overlay append of
+                   256 samples at their placements; ms a call and peak
+                   device memory of each, ecap and the true pair bound, the
+                   device ms by op of one X9 call
+  ripples_fixture  ripples (X13 on the card) on tests/test_ripples.py's two
+                   trees and on the fixture pb (the defaults, -n 1 -l 2,
+                   -S/-E halves, -s), ripplesInit, ripplesUtils and
+                   ripples-filter on them, transpose_vcf (round trip),
+                   compareVCF and check_samples_place on the fixture VCF and
+                   pbs, all through the dispatcher (python -m
+                   usher_tpu_torch <tool>), on the card and in a
+                   USHER_TPU_PLATFORM=cpu subprocess: exit codes, stdout,
+                   stderr and every file byte-equal; R found, the clean tree
+                   quiet, the halves the whole
+  ripples_realistic
+                   ripples on the realistic pb at full width: -s with 4
+                   recombinant leaves planted under the root (each a donor
+                   clade's path genotype below position 15,000 and a
+                   disjoint acceptor clade's above), every one reported with
+                   an improvement of 3 or more; -S 0 -E 32 (a fleet
+                   worker's share) == -S 0 -E 16 then -S 16 -E 32; X13 ==
+                   _cost_matrix_plain on the card for each candidate of the
+                   -S 0 -E 16 run; ripples-filter on the -s run; per run
+                   the wall, candidates, X13 ms a candidate, bytes to the
+                   host a candidate, host share and peak device memory
 
 Kernel against plain comparisons are exact (tolerance 0: the arithmetic is
 integer).  Every comparison covers the kernel with caller-given row sums and
@@ -167,9 +199,12 @@ programs are torch ops and which must launch none of the five, the
 usher-sampled path (sampled_fixture and sampled_realistic), whose B1
 launches must equal its PlacementEngine.score_samples calls (one a shard
 under a mesh), the two servers (server_realistic, a window each:
-usher_server's -s request must launch B2), and the matUtils path
+usher_server's -s request must launch B2), the matUtils path
 (matutils_fixture and matutils_realistic), whose B1 launches must equal its
-PlacementEngine.score_samples calls.  The scanner phase launches
+PlacementEngine.score_samples calls, and the RIPPLES, X9 and tools paths
+(seg_pandemic, the X9 run of direct_realistic, ripples_fixture and
+ripples_realistic), whose device programs are torch ops and which must
+launch none of the five (ripples_path_launches in the kernels line).  The scanner phase launches
 nothing.  B1-3d has
 no caller on any path (its TPU counterpart has
 none either), so its main-path count is 0 and only the comparisons launch
@@ -1454,33 +1489,49 @@ def phase_direct_realistic(kern, pb, vcf, dense_out, n_samples, batch_size):
     synchronous order and with USHER_TPU_DIRECT_PIPE=1 (the next batch's
     scoring enqueued before this batch's host corrections): both must
     write realistic_e2e's placement_stats.tsv, final-tree.nh and
-    mutation-paths.txt.  Per mode: the CLI wall, the pb load and BigMAT
-    build, place_all, samples/s, full host re-scores and the peak device
-    memory; the window launches no B1 and no B2."""
+    mutation-paths.txt.  Then once more synchronously with USHER_TPU_SEG=1
+    (the scoring calls through X9, counted from outside): the same files.
+    Per mode: the CLI wall, the pb load and BigMAT build, place_all,
+    samples/s, full host re-scores and the peak device memory; the window
+    launches no B1 and no B2, and the X9 run none of the five kernels."""
     before = kern.counts()
     modes = {}
     for mode, env in (("sync", None),
-                      ("pipelined", {"USHER_TPU_DIRECT_PIPE": "1"})):
+                      ("pipelined", {"USHER_TPU_DIRECT_PIPE": "1"}),
+                      ("seg", {"USHER_TPU_SEG": "1"})):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         out = os.path.join(WORK, "realistic", f"direct_{mode}")
-        wall, times, seen, rescores, line = run_direct(
-            ["-i", pb, "-v", vcf, "-d", out, "-s", "--batch-size",
-             str(batch_size), "--mesh-devices", "0"], env)
+        calls, k0 = [], kern.counts()
+        with seg_spy(calls):
+            wall, times, seen, rescores, line = run_direct(
+                ["-i", pb, "-v", vcf, "-d", out, "-s", "--batch-size",
+                 str(batch_size), "--mesh-devices", "0"], env)
         peak = torch.cuda.max_memory_allocated()
+        k1 = kern.counts()
         same_files(out, dense_out, zip(PLACE_FILES, PLACE_FILES))
+        if bool(calls) != (mode == "seg"):
+            raise AssertionError(f"--pb-direct {mode}: {len(calls)} X9 "
+                                 "calls")
         modes[mode] = dict(
             cli_seconds=wall, seconds=times,
             samples_per_s=n_samples / times["place_all_s"],
             full_host_rescores=rescores, rescore_line=line,
             peak_device_bytes=peak, bigmat_builds=len(seen))
+        if mode == "seg":
+            same_files(out, os.path.join(WORK, "realistic", "direct_sync"),
+                       zip(PLACE_FILES, PLACE_FILES))
+            modes[mode].update(x9_calls=len(calls), launches={
+                k: k1[k] - k0[k] for k in k1})
     after = kern.counts()
     launches = {k: after[k] - before[k] for k in after}
     if launches["B1"] or launches["B2"]:
         raise AssertionError(f"--pb-direct launched {launches}")
     return {"vs_realistic_e2e": "byte-identical " + ", ".join(PLACE_FILES)
-            + " (sync and pipelined)", "samples": n_samples,
-            "batch_size": batch_size, "launches": launches, **modes}
+            + " (sync, pipelined and USHER_TPU_SEG=1)", "samples": n_samples,
+            "batch_size": batch_size, "launches": launches,
+            "place_all_s": {m: modes[m]["seconds"]["place_all_s"]
+                            for m in modes}, **modes}
 
 
 def synth_bigmat(rng, N, P, n_mut=2, device=None):
@@ -3042,6 +3093,553 @@ def phase_grouped_pandemic(device, n_nodes=1_000_000, n_sites=30_000,
     return res
 
 
+# --- the segment-query engine X9 (USHER_TPU_SEG) ----------------------------
+
+@contextlib.contextmanager
+def seg_spy(calls):
+    """Count the calls of X9 (ops/interval.interval_place_seg_dev) while
+    the context is open, from outside the package."""
+    from usher_tpu_torch.ops import interval as iv
+    fn = iv.interval_place_seg_dev
+
+    def spy(*a, **k):
+        calls.append(1)
+        return fn(*a, **k)
+    iv.interval_place_seg_dev = spy
+    try:
+        yield
+    finally:
+        iv.interval_place_seg_dev = fn
+
+
+def pair_bound(big, pos):
+    """The largest per-sample count of (entry, column mutation) pairs of a
+    batch: X9's ecap (core/bigmat.py computes the same on the host)."""
+    pe = np.minimum(pos, big.P - 1).astype(np.int64)
+    cnt = big.csc_ptr[pe + 1] - big.csc_ptr[pe]
+    return int(np.where(pos < big.P, cnt, 0).sum(axis=1).max())
+
+
+def placed_inserts(big, pos, gval, kmiss, slots):
+    """Child inserts of samples at their placements (a leaf's parent where
+    the winner is a leaf): per sample (internal slot, [(col, par, mut)])
+    of its entries against the slot's path state."""
+    out = []
+    for b, u in enumerate(slots.tolist()):
+        u = int(big.parent[u]) if big.is_leaf[u] else int(u)
+        state, x = {}, u
+        while True:
+            lo, hi = int(big.mut_ptr[x]), int(big.mut_ptr[x + 1])
+            for c, v in zip(big.mut_col[lo:hi].tolist(),
+                            big.mut_mut[lo:hi].tolist()):
+                state.setdefault(c, v)
+            if int(big.parent[x]) == x:
+                break
+            x = int(big.parent[x])
+        muts = []
+        for c, v, miss in zip(pos[b].tolist(), gval[b].tolist(),
+                              kmiss[b].tolist()):
+            par = state.get(c, int(big.ref[c])) if c < big.P else None
+            if c < big.P and not miss and v != par:
+                muts.append((c, par, v))
+        out.append((u, muts))
+    return out
+
+
+def phase_seg_pandemic(big, n_samples=1024, K=24, K_slots=32, n_append=256):
+    """X9 against X5 on bigmat_pandemic's 1,000,000-node x 30,000-site
+    BigMAT: 1,024 samples of 24 entries in 32 slots, place_arrays with
+    USHER_TPU_SEG=1 (X9) and unset (X5), without and with the runner-up,
+    every output field equal; the same after an overlay append of 256 of
+    the samples at their placements.  Per engine: ms a call (median of 3)
+    and peak device memory; ecap and the true pair bound; the device ms
+    by op of one X9 call (torch.profiler)."""
+    rng = np.random.default_rng(17)
+    pos, gval, kmiss = big_samples(rng, big, n_samples, K, K_slots)
+    res = {"N": big.N, "P": big.P, "B": n_samples, "K": K,
+           "K_slots": K_slots,
+           "mc": int(np.diff(big.csc_ptr).max())}
+
+    def both(tag, second):
+        out, calls = {}, []
+        for name, env in (("x5", {"USHER_TPU_SEG": "0"}),
+                          ("x9", {"USHER_TPU_SEG": "1"})):
+            n0 = len(calls)
+            with patched_env(env), seg_spy(calls):
+                got = big.place_arrays(pos, gval, kmiss, with_second=second)
+            if len(calls) - n0 != (name == "x9"):
+                raise AssertionError(f"seg_pandemic {tag}: X9 calls "
+                                     f"{len(calls) - n0} under {env}")
+            out[name] = got if second else (got,)
+        same_arrays(f"X9 vs X5 ({tag}, second={second})",
+                    [a for t in out["x9"] for a in t],
+                    [a for t in out["x5"] for a in t])
+        return out["x5"][0]
+
+    for tag in ("snapshot", "overlay"):
+        if tag == "overlay":
+            # the first n_append samples at their snapshot placements
+            t0 = time.perf_counter()
+            for u, muts in placed_inserts(big, pos[:n_append],
+                                          gval[:n_append],
+                                          kmiss[:n_append],
+                                          placed[1][:n_append]):
+                big.queue_child_insert(u, muts)
+            big._flush()
+            res["append_s"] = time.perf_counter() - t0
+            res["N_after_append"] = big.N
+        placed = both(tag, False)
+        both(tag, True)
+        bound = pair_bound(big, pos)
+        row = {"true_pair_bound": bound, "ecap": max(1, bound),
+               "expansion_width": K_slots * int(np.diff(big.csc_ptr).max())}
+        for name, env in (("x5", {"USHER_TPU_SEG": "0"}),
+                          ("x9", {"USHER_TPU_SEG": "1"})):
+            with patched_env(env):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                row[f"{name}_ms"] = median_ms(
+                    lambda: big.place_arrays(pos, gval, kmiss), runs=3)
+                row[f"{name}_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                          / 1e9)
+                row[f"{name}_second_ms"] = median_ms(
+                    lambda: big.place_arrays(pos, gval, kmiss,
+                                             with_second=True), runs=3)
+        if tag == "snapshot":
+            with patched_env({"USHER_TPU_SEG": "1"}):
+                row["x9_profile"] = device_profile(
+                    lambda: big.place_arrays(pos, gval, kmiss))
+        res[tag] = row
+        log(f"  seg_pandemic {tag}: {json.dumps(row)}")
+    res["checks"] = ("X9 == X5 in all 4 (8 with the runner-up) output "
+                     "fields, before and after the overlay append")
+    return res
+
+
+# --- RIPPLES and the tools (ripples/, cli/ripples*_cli.py, the dispatcher) ---
+
+@contextlib.contextmanager
+def x13_spy(rec, keep=False):
+    """Record each call of X13's device form (ripples/detect._cost_matrix)
+    from outside the package: the device, the synchronized ms, the bytes
+    its outputs take to the host; with keep, its inputs and outputs for a
+    comparison with the plain version afterwards."""
+    from usher_tpu_torch.ripples import detect
+    fn = detect._cost_matrix
+
+    def spy(st, stp, ref, g, E, miss, cols):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(st, stp, ref, g, E, miss, cols)
+        torch.cuda.synchronize()
+        rec.setdefault("device", set()).add(st.device.type)
+        rec.setdefault("ms", []).append((time.perf_counter() - t0) * 1e3)
+        rec.setdefault("d2h_bytes", []).append(
+            sum(t.numel() * t.element_size() for t in out))
+        rec["shape"] = [int(st.shape[0]), int(st.shape[1])]
+        rec.setdefault("gathered_columns", []).append(int(cols.shape[0]))
+        if keep:
+            rec.setdefault("calls", []).append(
+                ((st, stp, ref, g, E, miss, cols), out))
+        return out
+    detect._cost_matrix = spy
+    try:
+        yield
+    finally:
+        detect._cost_matrix = fn
+
+
+def recombinant_tree(clean=False):
+    """tests/test_ripples.py's two constructed trees with the port's
+    classes: a recombinant leaf R under the root carrying donor clade d1's
+    mutations below 15,000 and acceptor clade a1's above; or (clean) two
+    unrelated long branches and no recombinant."""
+    from usher_tpu_torch.core.tree import Mutation, Tree
+
+    def mk(pos, mut):
+        return Mutation(chrom="c", position=pos, ref_nuc=1, par_nuc=1,
+                        mut_nuc=mut)
+    T = Tree()
+    root = T.create_node("root")
+    if clean:
+        b1 = T.create_node("b1", root)
+        b1.mutations = [mk(1000, 4), mk(2000, 4), mk(3000, 4)]
+        T.create_node("L1", b1).mutations = [mk(30000, 2)]
+        T.create_node("L2", b1).mutations = [mk(30001, 2)]
+        b2 = T.create_node("b2", root)
+        b2.mutations = [mk(15000, 2), mk(16000, 2), mk(17000, 2)]
+        T.create_node("L3", b2).mutations = [mk(30002, 2)]
+        T.create_node("L4", b2).mutations = [mk(30003, 2)]
+        return T
+    d1 = T.create_node("d1", root)
+    d1.mutations = [mk(1100, 4), mk(2200, 4), mk(3300, 4)]
+    T.create_node("D1", d1).mutations = [mk(20000, 2)]
+    T.create_node("D2", d1).mutations = [mk(20001, 2)]
+    a1 = T.create_node("a1", root)
+    a1.mutations = [mk(15100, 2), mk(15200, 2), mk(15300, 2)]
+    T.create_node("A1", a1).mutations = [mk(20002, 2)]
+    T.create_node("A2", a1).mutations = [mk(20003, 2)]
+    T.create_node("R", root).mutations = [
+        mk(1100, 4), mk(2200, 4), mk(3300, 4),
+        mk(15100, 2), mk(15200, 2), mk(15300, 2)]
+    T.create_node("X", root).mutations = [mk(25000, 8)]
+    return T
+
+
+def run_plan(plan, root):
+    """Run each (step, directory, argv, inputs) of a plan through the
+    port's dispatcher (python -m usher_tpu_torch <tool> ...) with cwd
+    root/directory, after writing its inputs there: {step: [exit code,
+    stdout, stderr]}."""
+    import io
+    from usher_tpu_torch import __main__ as dispatch
+    got = {}
+    for step, d, argv, inputs in plan:
+        wd = mkdir(os.path.join(root, d))
+        for name, text in inputs.items():
+            with open(os.path.join(wd, name), "w") as f:
+                f.write(text)
+        out, err = io.StringIO(), io.StringIO()
+        old = sys.argv
+        sys.argv = ["usher_tpu_torch", *argv]
+        try:
+            with contextlib.chdir(wd), contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = dispatch.main()
+        finally:
+            sys.argv = old
+        got[step] = [rc, out.getvalue(), err.getvalue()]
+    return got
+
+
+CPU_PLAN = """
+import json, sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+with open({plan!r}) as f:
+    plan = json.load(f)
+with open({result!r}, "w") as f:
+    json.dump(chip_smoke.run_plan(plan, {root!r}), f)
+"""
+
+
+def rows_of(root, d, name="recombination.tsv"):
+    with open(os.path.join(root, d, "out", name)) as f:
+        return [l for l in f.read().splitlines()[1:] if l]
+
+
+def phase_ripples_fixture(kern, built_pb, placed_pb):
+    """ripples on tests/test_ripples.py's two trees and on the fixture's
+    pb (the defaults, -n 1 -l 2, -S/-E halves of -n 1 -l 1 -p 1, -s),
+    then ripplesInit, ripplesUtils and ripples-filter on them, and
+    transpose_vcf (round trip), compareVCF and check_samples_place on the
+    fixture VCF and pbs, all through the port's dispatcher, on the card
+    and in a USHER_TPU_PLATFORM=cpu subprocess: exit codes, stdout,
+    stderr and every file byte-equal; R found, the clean tree quiet, the
+    halves the whole; X13 ran on cuda; no kernel launched."""
+    from usher_tpu_torch.io.pbio import load_mat_pb, save_mat_pb
+    fx = os.path.join(REPO, "tests", "fixtures")
+    gvcf = os.path.join(fx, "global_samples.vcf")
+    nvcf = os.path.join(fx, "new_samples.vcf")
+    ref_fa = os.path.join(fx, "NC_045512v2.fa")
+    out = os.path.join(WORK, "ripples_fixture")
+    ins = mkdir(os.path.join(out, "in"))
+    pbs = {}
+    for name, T in (("recomb", recombinant_tree()),
+                    ("clean", recombinant_tree(clean=True))):
+        pbs[name] = os.path.join(ins, f"{name}.pb")
+        save_mat_pb(T, pbs[name])
+    T = load_mat_pb(built_pb)
+    T.uncondense_leaves()
+    leaves = T.get_leaves_ids()
+    samples = "".join(leaves[i] + "\n" for i in (0, 97, 301))
+    recomb_leaves = recombinant_tree().get_leaves_ids()
+    pvals = ("#recomb\ta\tb\tdonor\tdsib\tc\tacceptor\tasib\n"
+             f"{recomb_leaves[0]}\tx\tx\t{recomb_leaves[1]}\ty\tx\td1\tn\n"
+             f"R\tx\tx\td1\ty\tx\ta1\ty\n")
+    halves = ["-n", "1", "-l", "1", "-p", "1"]
+    rip = ["ripples", "-d", "out", "-i"]
+    plan = [
+        ("recomb", "recomb", [*rip, pbs["recomb"], "-n", "1", "-l", "3",
+                              "-p", "3"], {}),
+        ("clean", "clean", [*rip, pbs["clean"], "-n", "1", "-l", "3",
+                            "-p", "3"], {}),
+        ("fx_defaults", "fx_defaults", [*rip, built_pb], {}),
+        ("fx_n1_l2", "fx_n1_l2", [*rip, built_pb, "-n", "1", "-l", "2"], {}),
+        ("fx_S0_E30", "fx_S0_E30", [*rip, built_pb, *halves, "-S", "0",
+                                    "-E", "30"], {}),
+        ("fx_S30_E60", "fx_S30_E60", [*rip, built_pb, *halves, "-S", "30",
+                                      "-E", "60"], {}),
+        ("fx_S0_E60", "fx_S0_E60", [*rip, built_pb, *halves, "-S", "0",
+                                    "-E", "60"], {}),
+        ("fx_samples", "fx_samples", [*rip, built_pb, "-n", "2", "-l", "1",
+                                      "-s", "s.txt"], {"s.txt": samples}),
+        ("init_recomb", "init_recomb", ["ripplesInit", "-i", pbs["recomb"],
+                                        "-l", "3", "-n", "2"], {}),
+        ("init_fx", "init_fx", ["ripplesInit", "-i", built_pb], {}),
+        ("utils_recomb", "utils_recomb", [
+            "ripplesUtils", pbs["recomb"], "--pvals", "pvals.txt",
+            "--data-dir", "data"], {"pvals.txt": pvals}),
+        ("filter_recomb", "filter_recomb", [
+            "ripples-filter", "-i", pbs["recomb"], "-r",
+            "../recomb/out/recombination.tsv", "-o", "filtered.tsv"], {}),
+        ("filter_fx", "filter_fx", [
+            "ripples-filter", "-i", built_pb, "-r",
+            "../fx_S0_E60/out/recombination.tsv", "-o", "filtered.tsv"], {}),
+        ("tv_encode", "tv", ["transpose_vcf", "encode", "-v", gvcf, "-o",
+                             "g.tvcf"], {}),
+        ("tv_names", "tv", ["transpose_vcf", "print_name", "-i", "g.tvcf"],
+         {}),
+        ("tv_to_vcf", "tv", ["transpose_vcf", "to_vcf", "-i", "g.tvcf",
+                             "-o", "back.vcf", "-r", ref_fa], {}),
+        ("tv_to_fa", "tv", ["transpose_vcf", "to_fa", "-i", "g.tvcf", "-o",
+                            "back.fa", "-r", ref_fa], {}),
+        ("tv_compare", "tv", ["compareVCF", gvcf, "back.vcf"], {}),
+        ("compare_same", "compare", ["compareVCF", nvcf, nvcf], {}),
+        ("compare_disjoint", "compare", ["compareVCF", nvcf, gvcf], {}),
+        ("check_placed", "check", ["check_samples_place", "-i", built_pb,
+                                   "-v", nvcf, "-o", placed_pb], {}),
+        ("check_not_placed", "check", ["check_samples_place", "-v", nvcf,
+                                       "-o", built_pb], {}),
+    ]
+    rec = {}
+    before = kern.counts()
+    t0 = time.perf_counter()
+    with x13_spy(rec):
+        card = run_plan(plan, os.path.join(out, "cuda"))
+    card_s = time.perf_counter() - t0
+    after = kern.counts()
+    launches = {k: after[k] - before[k] for k in after}
+    plan_path = os.path.join(out, "plan.json")
+    result_path = os.path.join(out, "cpu.json")
+    with open(plan_path, "w") as f:
+        json.dump(plan, f)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", CPU_PLAN.format(
+        repo=REPO, plan=plan_path, result=result_path,
+        root=os.path.join(out, "cpu"))],
+        env=dict(os.environ, USHER_TPU_PLATFORM="cpu", PYTHONPATH=REPO),
+        check=True, timeout=600, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL)
+    cpu_s = time.perf_counter() - t0
+    with open(result_path) as f:
+        cpu = json.load(f)
+    for step, *_ in plan:
+        if card[step] != cpu[step]:
+            raise AssertionError(f"ripples_fixture {step}: exit code or "
+                                 "output differs between card and CPU")
+    card_files = dir_files(os.path.join(out, "cuda"))
+    if card_files != dir_files(os.path.join(out, "cpu")):
+        raise AssertionError("ripples_fixture: files differ between card "
+                             "and CPU")
+    want_rc = {"check_not_placed": 1}
+    bad = {s: r[0] for s, r in card.items() if r[0] != want_rc.get(s, 0)}
+    if bad:
+        raise AssertionError(f"ripples_fixture exit codes {bad}")
+    root = os.path.join(out, "cuda")
+    if {r.split("\t")[0] for r in rows_of(root, "recomb")} != {"R"}:
+        raise AssertionError("ripples_fixture: R not reported alone")
+    if rows_of(root, "clean"):
+        raise AssertionError("ripples_fixture: the clean tree reported")
+    for name in ("recombination.tsv", "descendants.tsv"):
+        if (rows_of(root, "fx_S0_E30", name) + rows_of(root, "fx_S30_E60",
+                                                       name)
+                != rows_of(root, "fx_S0_E60", name)):
+            raise AssertionError(f"ripples_fixture: -S/-E halves of {name} "
+                                 "are not the whole")
+    if rec.get("device") != {"cuda"} or any(launches.values()):
+        raise AssertionError(f"ripples_fixture: X13 on {rec.get('device')},"
+                             f" launches {launches}")
+    return {"outputs": f"{len(plan)} dispatcher runs, {len(card_files)} "
+                       "files byte-equal, card and CPU",
+            "card_s": card_s, "cpu_subprocess_s": cpu_s,
+            "x13_calls": len(rec["ms"]),
+            "rows": {s: len(rows_of(root, d)) for s, d, a, _ in plan
+                     if a[0] == "ripples"},
+            "launches": launches}
+
+
+def plant_recombinants(pb, out_pb, n_planted, seed, split=15_000,
+                       min_leaves=10, max_leaves=400):
+    """The realistic pb with n_planted recombinant leaves under the root
+    (build_recombinant_tree's shape at full size): each takes a donor
+    node's path genotype at positions below `split` and a disjoint
+    acceptor node's at or above it, donor and acceptor being clades of
+    min_leaves to max_leaves leaves with at least 3 path mutations on
+    their side of the split spanning 1,000 bases or more (ripples' -l 3
+    and -r 1000 defaults).  Returns the planted names and set-up seconds."""
+    from usher_tpu_torch.core.tree import Mutation
+    from usher_tpu_torch.io.pbio import load_mat_pb, save_mat_pb
+    from usher_tpu_torch.ripples.detect import pruned_sample_mutations
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    T = load_mat_pb(pb)
+    nodes = T.depth_first_expansion()
+    leaves = {}
+    for nd in reversed(nodes):
+        leaves[nd.identifier] = (1 if nd.is_leaf() else
+                                 sum(leaves[c.identifier]
+                                     for c in nd.children))
+    clades = [nd for nd in nodes[1:]
+              if min_leaves <= leaves[nd.identifier] <= max_leaves]
+    planted, used = [], []
+
+    def disjoint(a, b):
+        return (a.dfs_end_idx <= b.dfs_idx or b.dfs_end_idx <= a.dfs_idx)
+    for _ in range(100_000):
+        if len(planted) == n_planted:
+            break
+        d, a = (clades[int(i)] for i in rng.integers(0, len(clades), 2))
+        if not disjoint(d, a) or any(not disjoint(x, y) for x in (d, a)
+                                     for y in used):
+            continue
+        low = [m for m in pruned_sample_mutations(d) if m.position < split]
+        high = [m for m in pruned_sample_mutations(a)
+                if m.position >= split]
+        if (len(low) < 3 or len(high) < 3
+                or low[-1].position - low[0].position < 1000):
+            continue
+        r = T.create_node(f"recomb_{len(planted)}", T.root)
+        for m in low + high:
+            r.add_mutation(Mutation(m.chrom, m.position, m.ref_nuc,
+                                    m.ref_nuc, m.mut_nuc))
+        used += [d, a]
+        planted.append(r.identifier)
+    if len(planted) < n_planted:
+        raise AssertionError(f"planted {len(planted)} of {n_planted} "
+                             "recombinants: too few donor/acceptor clades")
+    save_mat_pb(T, out_pb)
+    return planted, time.perf_counter() - t0
+
+
+def run_ripples(argv):
+    """The port's ripples CLI on the card, its stderr kept: (wall s, stderr
+    text); the CLI must exit 0."""
+    import io
+    from usher_tpu_torch.cli.ripples_cli import main
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        sys.stderr.write(err.getvalue()[-3000:])
+        raise AssertionError(f"ripples {argv} returned {rc}")
+    return wall, err.getvalue()
+
+
+def phase_ripples_realistic(kern, pb, n_planted=4, seed=23):
+    """ripples on the realistic pb (100,000 nodes x 30,000 sites, full
+    width): a day's new samples checked for recombination (-s with
+    n_planted recombinant leaves planted under the root, the -l 3 -n 10
+    -p 3 defaults), each planted leaf reported with recomb_parsimony + 3
+    <= original_parsimony, and ripples-filter on that run's
+    recombination.tsv; one fleet worker's share (-S 0 -E 32 on the
+    unplanted pb), whose rows are those of -S 0 -E 16 then -S 16 -E 32;
+    X13 on the card against _cost_matrix_plain at the gathered columns for
+    every candidate of the -S 0 -E 16 run, bit for bit, and the device ms
+    by op of one X13 call.  Per run: wall, candidates, X13 ms a candidate,
+    bytes copied to the host a candidate, host share (wall outside X13)
+    and peak device memory."""
+    from usher_tpu_torch.ripples.detect import _cost_matrix_plain
+    out = os.path.join(WORK, "ripples_realistic")
+    planted_pb = os.path.join(mkdir(out), "planted.pb")
+    planted, plant_s = plant_recombinants(pb, planted_pb, n_planted, seed)
+    with open(os.path.join(out, "planted.txt"), "w") as f:
+        f.write("".join(p + "\n" for p in planted))
+    before = kern.counts()
+    res = {"planted": planted, "plant_setup_s": plant_s}
+    runs = (("samples", planted_pb, ["-s", os.path.join(out, "planted.txt")]),
+            ("S0_E32", pb, ["-S", "0", "-E", "32"]),
+            ("S0_E16", pb, ["-S", "0", "-E", "16"]),
+            ("S16_E32", pb, ["-S", "16", "-E", "32"]))
+    kept = None
+    for name, src, args in runs:
+        rec = {}
+        with x13_spy(rec, keep=name == "S0_E16"):
+            wall, err = run_ripples(["-i", src, "-d",
+                                     os.path.join(out, name, "out"), *args])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        x13_s = sum(rec.get("ms", [])) / 1e3
+        n = len(rec.get("ms", []))
+        res[name] = {
+            "wall_s": wall,
+            "candidates": int(err.split("Found ")[1].split()[0]),
+            "x13_calls": n, "x13_device": sorted(rec.get("device", [])),
+            "x13_ms_per_candidate": (statistics.median(rec["ms"]) if n
+                                     else None),
+            "d2h_bytes_per_candidate": (statistics.median(rec["d2h_bytes"])
+                                        if n else None),
+            "gathered_columns": rec.get("gathered_columns"),
+            "host_share": 1 - x13_s / wall, "peak_device_gb": peak,
+            "rows": len(rows_of(out, name))}
+        if rec.get("device", {"cuda"}) != {"cuda"} or not n:
+            raise AssertionError(f"ripples_realistic {name}: X13 calls "
+                                 f"{n} on {rec.get('device')}")
+        if name == "S0_E16":
+            kept = rec["calls"]
+        log(f"  ripples_realistic {name}: {json.dumps(res[name])}")
+    # every planted leaf reported, each with the improvement
+    found = {}
+    for r in rows_of(out, "samples"):
+        f = r.split("\t")
+        if int(f[11]) + 3 > int(f[9]):
+            raise AssertionError(f"ripples_realistic row {f}: no "
+                                 "improvement of 3")
+        found.setdefault(f[0], []).append(f)
+    if set(planted) - set(found):
+        raise AssertionError(f"ripples_realistic: planted {planted}, "
+                             f"reported {sorted(found)}")
+    res["samples"]["reported"] = {p: len(found[p]) for p in planted}
+    for name in ("recombination.tsv", "descendants.tsv"):
+        if (rows_of(out, "S0_E16", name) + rows_of(out, "S16_E32", name)
+                != rows_of(out, "S0_E32", name)):
+            raise AssertionError(f"ripples_realistic: -S/-E halves of "
+                                 f"{name} are not the whole")
+    # X13 against its plain version on the card, at the gathered columns
+    plain_ms = []
+    for (st, stp, ref, g, E, miss, cols), got in kept:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        csum, total, hu = _cost_matrix_plain(st, stp, ref, None, g[None],
+                                             E[None], miss[None])
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        if not (torch.equal(csum[:, cols], got[0])
+                and torch.equal(total, got[1]) and torch.equal(hu, got[2])):
+            raise AssertionError("X13 device form != _cost_matrix_plain")
+        del csum, total, hu
+    from usher_tpu_torch.ripples.detect import _cost_matrix
+    res["x13_vs_plain"] = {"candidates": len(kept), "max_abs_err": 0,
+                           "plain_ms_per_candidate":
+                               statistics.median(plain_ms),
+                           "x13_profile": device_profile(
+                               lambda: _cost_matrix(*kept[-1][0]))}
+    del kept
+    torch.cuda.empty_cache()
+    # ripples-filter on the -s run's candidates
+    from usher_tpu_torch.cli.ripples_filter_cli import main as rfilter
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(sys.stdout):
+        rc = rfilter(["-i", planted_pb, "-r",
+                      os.path.join(out, "samples", "out",
+                                   "recombination.tsv"),
+                      "-o", os.path.join(out, "filtered.tsv")])
+    if rc != 0:
+        raise AssertionError(f"ripples-filter returned {rc}")
+    with open(os.path.join(out, "filtered.tsv")) as f:
+        frows = [l.split("\t") for l in f.read().splitlines()[1:] if l]
+    res["filter"] = {"wall_s": time.perf_counter() - t0,
+                     "trios": len(frows),
+                     "significant": sum(r[-1] == "yes" for r in frows)}
+    after = kern.counts()
+    res["launches"] = {k: after[k] - before[k] for k in after}
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3169,11 +3767,19 @@ def main() -> int:
     phase("optimize_fixture", phase_optimize_fixture,
           os.path.join(WORK, "fixture", "out.pb"), smi)
     phase("optimize_realistic", phase_optimize_realistic, pb, smi)
-    phase("optimize_pandemic", phase_optimize_pandemic, keep.pop("big"), smi)
+    phase("optimize_pandemic", phase_optimize_pandemic, keep["big"], smi)
     opt_counts = kern.counts()
     log(f"matOptimize path launches: {json.dumps(opt_counts)}")
     if any(opt_counts.values()):
         raise AssertionError(f"matOptimize path: launches {opt_counts}")
+    # ----------------------------------------------------------------------
+
+    # --- X9 on the same BigMAT: after optimize_pandemic, whose check of ----
+    # --- X7's device expansion against host events would not hold over ----
+    # --- the overlay this phase appends; its own window of launches --------
+    kern.reset_counts()
+    phase("seg_pandemic", phase_seg_pandemic, keep.pop("big"))
+    seg_counts = kern.counts()
     # ----------------------------------------------------------------------
 
     # --- the usher-sampled path: the counters cover its CLI runs on the ----
@@ -3209,6 +3815,25 @@ def main() -> int:
     # ----------------------------------------------------------------------
     phase("grouped_pandemic", phase_grouped_pandemic, device)
 
+    # --- RIPPLES and the tools: the counters cover ripples_fixture and -----
+    # --- ripples_realistic, whose device work (X13) is torch ops; with ----
+    # --- seg_pandemic and the X9 run of direct_realistic they make the ----
+    # --- new paths, which must launch none of the five kernels ------------
+    kern.reset_counts()
+    phase("ripples_fixture", phase_ripples_fixture, kern,
+          os.path.join(WORK, "fixture", "out.pb"),
+          os.path.join(WORK, "fixture", "out2.pb"))
+    phase("ripples_realistic", phase_ripples_realistic, kern, pb)
+    rip_counts = kern.counts()
+    new_path_counts = {k: rip_counts[k] + seg_counts[k]
+                       + direct_real["seg"]["launches"][k]
+                       for k in rip_counts}
+    log(f"RIPPLES, X9 and tools path launches: {json.dumps(new_path_counts)}")
+    if any(new_path_counts.values()):
+        raise AssertionError(f"RIPPLES / X9 paths: launches "
+                             f"{new_path_counts}")
+    # ----------------------------------------------------------------------
+
     for banned in ("jax", "jaxlib", "usher_tpu"):
         if any(m == banned or m.startswith(banned + ".")
                for m in sys.modules):
@@ -3242,12 +3867,16 @@ def main() -> int:
 
     def entry(name, replaces, launches, err, ms, plain_ms, bnd, **more):
         # library_ms is null throughout: no single PyTorch call computes
-        # the sparse placement score or its tie-broken argmin
+        # the sparse placement score or its tie-broken argmin.  The
+        # RIPPLES, X9 and tools paths' count is the kernel's own (mesh B1
+        # launches the B1 kernel), checked to be 0 above
+        kernel = name.split()[0] if name.split()[0] != "mesh" else "B1"
         return dict(name=name, route="cuda", source=src, replaces=replaces,
                     launches=launches, max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=bnd["bound_ms"],
                     bound_by=bnd["bound_by"], library_ms=None,
-                    bytes_ms=bnd["bytes_ms"], ops_ms=bnd["ops_ms"], **more)
+                    bytes_ms=bnd["bytes_ms"], ops_ms=bnd["ops_ms"],
+                    ripples_path_launches=new_path_counts[kernel], **more)
 
     def fused(name):
         """fused_ms, fused_bound_ms, the main-path shape's numbers and the

@@ -320,15 +320,20 @@ def test_big_engine_mesh_is_flattened_and_scores_alike():
     assert eng._big.mesh is eng.mesh
 
 
-def test_unported_branches_raise(monkeypatch):
-    """The segment-query kernel (X9) raises instead of running something
-    else; a batch mesh itself scores and places
-    (test_bigmat_mesh_identical) and searches SPR moves
-    (test_torch_spr_big.py::test_sharded_spr_search_matches), and the
+def test_seg_branch_matches_jax(monkeypatch):
+    """With USHER_TPU_SEG=1 place_arrays reduces through the segment-query
+    engine (X9), and its results, with and without the runner-up, are the
+    JAX BigMAT's under the same setting (tests/test_torch_interval_seg.py
+    holds X9 against X5 and the JAX X9 on larger MATs).  A batch mesh
+    itself scores and places (test_bigmat_mesh_identical) and searches SPR
+    moves (test_torch_spr_big.py::test_sharded_spr_search_matches), and the
     grouped engine (X6) is held against the JAX one in
     test_torch_grouped.py."""
     jb, tb, samples, _ = _pair(5)
     pos, gval, kmiss = tb.sparsify(samples)
     monkeypatch.setenv("USHER_TPU_SEG", "1")
-    with pytest.raises(NotImplementedError, match="X9"):
-        tb.place_arrays(pos, gval, kmiss)
+    _eq(tb.place_arrays(pos, gval, kmiss), jb.place_arrays(pos, gval, kmiss))
+    got = tb.place_arrays(pos, gval, kmiss, with_second=True)
+    want = jb.place_arrays(pos, gval, kmiss, with_second=True)
+    for g, w in zip(got, want):
+        _eq(g, w)

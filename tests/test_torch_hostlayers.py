@@ -615,7 +615,8 @@ def test_diff_and_patch_match(tmp_path):
 
 
 @pytest.mark.parametrize("module,changed", [
-    ("io.fatovcf", set()),
+    # the usage line names the port
+    ("io.fatovcf", {"main"}),
     ("matutils.describe", set()),
     ("matutils.fix", set()),
     ("matutils.summary", set()),
@@ -670,3 +671,40 @@ def test_group_ancestral_batch_is_the_original():
     assert len(names) >= 7
     for name in names:
         assert got[name] == want[name], name
+
+
+@pytest.mark.parametrize("module,changed,added,removed", [
+    ("ripples.filter", set(), set(), set()),
+    ("ripples.init", set(), set(), set()),
+    ("ripples.utils", set(), set(), set()),
+    # X13 as torch ops in row blocks with its prefix sums gathered at the
+    # columns the pair loop reads, beside the JAX program's form; the pair
+    # loop's exact restructurings (per-run names and DFS indices, the
+    # first 1,000 by a name rank, the early stop)
+    ("ripples.detect", {"_cost_matrix", "ripples_main"},
+     {"_cost_matrix_plain", "gather_columns", "first_by_parsimony",
+      "first_pair"}, set()),
+    # the usage and version lines name the port; ripples takes the device
+    # from USHER_TPU_PLATFORM (utils/device.py) before it reads the pb
+    ("cli.ripples_cli", {"build_parser", "main"}, set(), set()),
+    ("cli.ripples_filter_cli", {"build_parser", "main"}, set(), set()),
+    ("cli.ripples_init_cli", {"main"}, set(), set()),
+    ("cli.ripples_utils_cli", {"main"}, set(), set()),
+    ("cli.check_samples_cli", set(), set(), set()),
+    ("cli.compare_vcf_cli", set(), set(), set()),
+    ("cli.transpose_vcf_cli", set(), set(), set()),
+    ("__main__", {"main"}, set(), set())])
+def test_ripples_slice_copies_keep_the_code(module, changed, added,
+                                            removed):
+    """Each function of the RIPPLES and tools slice is its original's,
+    apart from the named ones (what tests/test_torch_{ripples,tools}.py
+    hold against the JAX package)."""
+    import importlib
+    jmod = importlib.import_module("usher_tpu." + module)
+    tmod = importlib.import_module("usher_tpu_torch." + module)
+    want = _code_by_name(jmod.__file__)
+    got = _code_by_name(tmod.__file__)
+    assert set(got) - set(want) == added
+    assert set(want) - set(got) == removed
+    assert {name for name in want
+            if name in got and got[name] != want[name]} == changed

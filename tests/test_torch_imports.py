@@ -21,6 +21,19 @@ PORT_MODULES = [
     "usher_tpu_torch.cli.usher_sampled_cli",
     "usher_tpu_torch.cli.usher_server_cli",
     "usher_tpu_torch.cli.usher_socket_server_cli",
+    "usher_tpu_torch.cli.ripples_cli",
+    "usher_tpu_torch.cli.ripples_filter_cli",
+    "usher_tpu_torch.cli.ripples_init_cli",
+    "usher_tpu_torch.cli.ripples_utils_cli",
+    "usher_tpu_torch.cli.check_samples_cli",
+    "usher_tpu_torch.cli.compare_vcf_cli",
+    "usher_tpu_torch.cli.transpose_vcf_cli",
+    "usher_tpu_torch.__main__",
+    "usher_tpu_torch.ripples",
+    "usher_tpu_torch.ripples.detect",
+    "usher_tpu_torch.ripples.filter",
+    "usher_tpu_torch.ripples.init",
+    "usher_tpu_torch.ripples.utils",
     "usher_tpu_torch.core.bigmat",
     "usher_tpu_torch.io.detailed",
     "usher_tpu_torch.io.diff",

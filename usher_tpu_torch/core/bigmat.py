@@ -32,8 +32,10 @@ metadata and runs the host-expansion engine (X8) on its samples.
 the shared-ancestry grouped engine (X6), with inputs from
 ``group_ancestral_batch`` (the JAX module's numpy, verbatim).
 
-Not ported yet, and raising NotImplementedError: the segment-query kernel
-selected by USHER_TPU_SEG (X9).
+With USHER_TPU_SEG set (and not "0"), ``place_arrays`` reduces a batch
+through the segment-query engine (X9, ops/interval.interval_place_seg_dev)
+where it would take X5: no clade histogram asked, no mesh, and the column
+occupancy within DEV_MAX_OCCUPANCY.  Opt-in, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -1581,16 +1583,13 @@ class BigMAT:
         Exact-duplicate samples are scored once and fanned back out:
         snapshot scoring is per-sample independent, and real pandemic
         batches carry many identical variant sets.  The events are
-        expanded on the device from the resident CSC (X5) unless a column
-        of the batch holds more than DEV_MAX_OCCUPANCY mutations; then the
+        expanded on the device from the resident CSC (X5, or X9 under
+        USHER_TPU_SEG when no clade histogram is asked) unless a column of
+        the batch holds more than DEV_MAX_OCCUPANCY mutations; then the
         host expands them (X8).  Under a mesh the batch is split over the
         mesh's devices, each running X8's fused placement on its samples
         (no dedup, runner-up or clade histogram there, as in the JAX
         package)."""
-        if os.environ.get("USHER_TPU_SEG", "0") != "0":
-            raise NotImplementedError(
-                "the segment-query placement kernel (USHER_TPU_SEG) is not "
-                "ported yet (ROADMAP X9)")
         B0 = pos.shape[0]
         if self.mesh is not None:
             return self._place_sharded(pos, gval, kmiss, with_second, clades)
@@ -1626,6 +1625,31 @@ class BigMAT:
                                        skip_base=True)
             else:
                 oev = [np.zeros(0, np.int32)] * 6
+            if clades is None and os.environ.get("USHER_TPU_SEG",
+                                                 "0") != "0":
+                # segment-query placement (X9): O(events * log N), no
+                # [N, B] matrices (ops/interval.py).  Opt-in, as in the
+                # JAX package; the same results as X5
+                ovr, ovv = iv.pad_overlay_by_sample(*oev[:3], B, N)
+                ovnr, ovnv = iv.pad_overlay_by_sample(*oev[3:6], B, N)
+                # the true per-sample pair bound (dead CSC rows included):
+                # the [K, mc] expansion is mostly padding, and X9's sort
+                # and table phases run at O(ecap) after compaction
+                if self.P and B:
+                    pe = np.minimum(pos, self.P - 1).astype(np.int64)
+                    cnt = self.csc_ptr[pe + 1] - self.csc_ptr[pe]
+                    mx_pairs = int(np.where(pos < self.P, cnt, 0)
+                                   .sum(axis=1).max())
+                else:
+                    mx_pairs = 0
+                out = iv.interval_place_seg_dev(
+                    *self._csc_dev(), self._t(pos.astype(np.int32)),
+                    self._t(gval), self._t(kmiss), self._t(ovr),
+                    self._t(ovv), self._t(ovnr), self._t(ovnv),
+                    meta["base"], meta["nc_base"], *margs,
+                    N, mc, max(1, mx_pairs), second=with_second)
+                return ("dev", (out, None, B, with_second, self.dfs_order,
+                                N))
             out = iv.interval_place_dev(
                 *self._csc_dev(), self._t(pos.astype(np.int32)),
                 self._t(gval), self._t(kmiss),

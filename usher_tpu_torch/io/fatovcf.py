@@ -136,7 +136,7 @@ def fa_to_vcf(aligned_fasta: str, out_vcf: str, reference: str = "",
 def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(
-        prog="faToVcf-tpu",
+        prog="faToVcf-torch",
         description="Convert an aligned multi-fasta to VCF (UCSC faToVcf "
                     "equivalent for the UShER pipeline).")
     p.add_argument("fasta", help="aligned multi-fasta (first record = "

@@ -28,6 +28,10 @@ itself.  Everything here is plain torch on the device of its inputs:
                            the SPR destination search (optimize/spr_big.py):
                            a source's ancestor-interval count rides in extra
                            columns of the same scan and bounds the radius
+  X9 ``interval_place_seg_dev``
+                           X5's winners without the [N, B] matrices: exact
+                           scores at a sample's event rows and one sparse-
+                           table range query per segment between them
 
 Scatter-adds target an explicit dump row ``n_pad`` (row count n_pad + 1):
 padding pairs and range ends past the last row land there and are never
@@ -590,3 +594,309 @@ def _spr_sharded_fn(mesh, n_pad: int, bl: int):
         return torch.cat([res[idx].cpu() for idx in mesh.indices()
                           if res[idx] is not None], dim=1).numpy()
     return fn
+
+
+# --- X9: segment-query placement, O(events * log N), no [N, B] matrix -------
+#
+# The [N, B] score matrix is piecewise constant per sample: between a
+# sample's difference-array event rows, score(n) = base(n) + add0 + R with R
+# the event prefix at the segment, and nc(n) = nc_base(n) (nc point events
+# only touch event rows).  So validity off event rows is the STATIC
+# validity, and the tie-broken argmin over a segment is a range query of a
+# monoid over (base, count@min, num_leaves, bfs_rank, row) restricted to
+# statically-valid rows, answered from a sparse table.  Per sample the
+# reduction touches its ~3 * pairs event rows exactly plus one table query a
+# segment, with the results of X5 (bit-identical; tests).  Row N is the
+# padding and sentinel row, as X5's dump row; every index into an [N] array
+# is clamped first (an out-of-range index is a device assert on CUDA).
+
+
+def _seg_combine(a, b):
+    """Monoid combine for (key, cnt, lv, rk, row): min key; equal keys sum
+    counts and keep the (num_leaves, bfs_rank)-max winner — the reference
+    tie-break (usher_mapper.cpp:458-497)."""
+    ka, ca, la, ra, wa = a
+    kb, cb, lb, rb, wb = b
+    key = torch.minimum(ka, kb)
+    cnt = torch.where(ka == kb, ca + cb, torch.where(kb < ka, cb, ca))
+    b_wins = (kb < ka) | ((kb == ka)
+                          & ((lb > la) | ((lb == la) & (rb > ra))))
+    lv = torch.where(b_wins, lb, la)
+    rk = torch.where(b_wins, rb, ra)
+    row = torch.where(b_wins, wb, wa)
+    return key, cnt, lv, rk, row
+
+
+def _build_seg_table(base_dfs, nc_base_dfs, num_mut_dfs, is_leaf_dfs,
+                     is_root_dfs, active_dfs, num_leaves_dfs,
+                     bfs_rank_dfs, n_pad: int):
+    """Sparse table of the static-valid monoid over the n_pad DFS rows:
+    T[k][i] summarizes rows [i, i + 2^k), cells past the end the identity.
+    Returns the five [L, n_pad] int32 fields, the static has_unique [n_pad]
+    and L."""
+    dev = base_dfs.device
+    hu_s = nc_base_dfs < num_mut_dfs
+    ncp = nc_base_dfs > 0
+    leaf = is_leaf_dfs
+    static_valid = (is_root_dfs | (leaf & ncp) | (~leaf & hu_s & ncp)
+                    | (~leaf & ~hu_s)) & active_dfs
+    i32 = dict(dtype=torch.int32, device=dev)
+    key0 = torch.where(static_valid, base_dfs.to(torch.int32), BIG)
+    levels = [(key0, torch.ones(n_pad, **i32),
+               num_leaves_dfs.to(torch.int32), bfs_rank_dfs.to(torch.int32),
+               torch.arange(n_pad, **i32))]
+    L = max(1, int(n_pad).bit_length())
+    pad_cell = (BIG, 0, -1, -1, n_pad)
+    for k in range(1, L):
+        sh = 1 << (k - 1)
+        prev = levels[-1]
+        shifted = tuple(
+            torch.cat([p[sh:], torch.full((min(sh, n_pad),), pc, **i32)])
+            for p, pc in zip(prev, pad_cell))
+        levels.append(_seg_combine(prev, shifted))
+    return (tuple(torch.stack([lv[f] for lv in levels]) for f in range(5)),
+            hu_s, L)
+
+
+def _seg_query(table, L, l, r):
+    """Range query over [l, r] (inclusive; empty when l > r) — a DISJOINT
+    binary-lifting walk (the two-overlapping-lookup trick holds only for
+    idempotent monoids; count@min is not one)."""
+    tk, tc, tl, tr, tw = table
+    n_pad = tk.shape[1]
+    acc = (torch.full_like(l, BIG), torch.zeros_like(l),
+           torch.full_like(l, -1), torch.full_like(l, -1),
+           torch.full_like(l, n_pad))
+    cur = l.clamp(0, n_pad)
+    rem = (r - l + 1).clamp(min=0)
+    for k in range(L - 1, -1, -1):
+        step = 1 << k
+        take = rem >= step
+        idx = cur.clamp(0, n_pad - 1).long()
+        cell = (tk[k][idx], tc[k][idx], tl[k][idx], tr[k][idx], tw[k][idx])
+        cand = _seg_combine(acc, cell)
+        acc = tuple(torch.where(take, c, a) for c, a in zip(cand, acc))
+        cur = torch.where(take, cur + step, cur)
+        rem = torch.where(take, rem - step, rem)
+    return acc
+
+
+def _seg_reduce(cands):
+    """(best, best_row, num_best, hu_best) from candidate tuples
+    (score, cnt, lv, rk, row, hu) each [B, S] — the min / count /
+    (leaves, rank)-max semantics of _tie_reduce over full matrices.  The
+    winner is the first candidate holding the winning rank (argmax over an
+    int32 mask returns the first maximum)."""
+    score, cnt, lv, rk, row, hu = cands
+    best = score.min(1).values
+    at = score == best[:, None]
+    num_best = torch.where(at, cnt, 0).sum(1, dtype=torch.int32)
+    best_lv = torch.where(at, lv, -1).max(1).values
+    at2 = at & (lv == best_lv[:, None])
+    best_rk = torch.where(at2, rk, -1).max(1).values
+    j = torch.argmax((at2 & (rk == best_rk[:, None])).to(torch.int32),
+                     dim=1)[:, None]
+    best_row = torch.gather(row, 1, j)[:, 0]
+    hu_best = torch.gather(hu, 1, j)[:, 0]
+    return best, best_row.to(torch.int32), num_best, hu_best
+
+
+def _seg_candidates(table, hu_s, L, rows_sorted, P_incl, add0,
+                    nc_events, base_dfs, nc_base_dfs, num_mut_dfs,
+                    is_leaf_dfs, is_root_dfs, active_dfs, num_leaves_dfs,
+                    bfs_rank_dfs, n_pad: int, exclude_row=None):
+    """Candidate set for one reduction pass: exact evaluations at the
+    (deduplicated) event rows + one monoid query per inter-event segment.
+    rows_sorted [B, Et] int32 (n_pad = padding); exclude_row [B] masks one
+    DFS row (the runner-up pass)."""
+    B, Et = rows_sorted.shape
+    dev = rows_sorted.device
+    # keep-LAST duplicate: its inclusive prefix is the full sum at the row
+    keep = torch.cat([rows_sorted[:, :-1] != rows_sorted[:, 1:],
+                      torch.ones((B, 1), dtype=torch.bool, device=dev)], 1)
+    rc = rows_sorted.clamp(0, n_pad - 1).long()
+    # nc at each row: every nc event's row is a score-event row, so the nc
+    # values ride the same sort as a payload channel and the per-row sum is
+    # a prefix difference across the duplicate group
+    iota = torch.arange(Et, dtype=torch.int32, device=dev).expand(B, Et)
+    kept_idx = torch.where(keep, iota, -1)
+    prev_kept = torch.cat(
+        [torch.full((B, 1), -1, dtype=torch.int32, device=dev),
+         torch.cummax(kept_idx, dim=1).values[:, :-1]], 1)
+    ncP0 = torch.cat([torch.zeros((B, 1), dtype=torch.int32, device=dev),
+                      nc_events], 1)
+    nc_at = nc_events - torch.gather(ncP0, 1, (prev_kept + 1).long())
+    nc_r = nc_base_dfs[rc] + nc_at
+    hu_r = nc_r < num_mut_dfs[rc]
+    ncp_r = nc_r > 0
+    leaf_r = is_leaf_dfs[rc]
+    valid_r = (is_root_dfs[rc] | (leaf_r & ncp_r)
+               | (~leaf_r & hu_r & ncp_r)
+               | (~leaf_r & ~hu_r)) & active_dfs[rc]
+    score_r = base_dfs[rc] + add0[:, None] + P_incl
+    mask_r = keep & (rows_sorted < n_pad) & valid_r
+    if exclude_row is not None:
+        mask_r &= rows_sorted != exclude_row[:, None]
+    exact = (torch.where(mask_r, score_r, BIG),
+             torch.ones((B, Et), dtype=torch.int32, device=dev),
+             num_leaves_dfs[rc].to(torch.int32),
+             bfs_rank_dfs[rc].to(torch.int32), rows_sorted, hu_r)
+
+    # segments: [prev_row + 1, row - 1] with R = prefix at prev_row;
+    # sentinel -1/0 in front, n_pad behind (padding rows land there)
+    pr_rows = torch.cat([torch.full((B, 1), -1, dtype=torch.int32,
+                                    device=dev), rows_sorted], 1)
+    pr_P = torch.cat([torch.zeros((B, 1), dtype=torch.int32, device=dev),
+                      P_incl], 1)
+    nx_rows = torch.cat([rows_sorted, torch.full((B, 1), n_pad,
+                                                 dtype=torch.int32,
+                                                 device=dev)], 1)
+    l = pr_rows + 1
+    r = nx_rows - 1
+
+    def seg(q):
+        kq, cq, lq, rq, wq = q
+        return (torch.where(kq >= BIG, BIG, kq + add0[:, None] + pr_P),
+                cq, lq, rq, wq, hu_s[wq.clamp(0, n_pad - 1).long()])
+    if exclude_row is None:
+        segs = [seg(_seg_query(table, L, l, r))]
+    else:
+        # runner-up pass: split the segment containing the excluded row
+        w = exclude_row[:, None]
+        contains = (l <= w) & (w <= r)
+        one = torch.ones_like(l)
+        segs = [seg(_seg_query(table, L, l, torch.where(contains, w - 1, r))),
+                seg(_seg_query(table, L, torch.where(contains, w + 1, one),
+                               torch.where(contains, r, one - 1)))]
+    return tuple(torch.cat(parts, 1) for parts in zip(exact, *segs))
+
+
+def interval_place_seg_dev(csc_ptr, csc_node, csc_meta, dfs_of,
+                           dfs_end_of, ref_cols, pos, gval, kmiss,
+                           ov_rows, ov_vals, ovn_rows, ovn_vals,
+                           base_dfs, nc_base_dfs,
+                           num_mut_dfs, is_leaf_dfs, is_root_dfs,
+                           active_dfs, num_leaves_dfs, bfs_rank_dfs,
+                           n_pad: int, mc: int, ecap: int,
+                           second: bool = False):
+    """X9: placement through segment queries.  The events are expanded on
+    the device as in X5 (interval_place_dev), but no [n_pad, B] matrix is
+    formed.  ov_rows/ov_vals [B, E] are the overlay score events of
+    incremental appends per sample (pad_overlay_by_sample; row n_pad =
+    padding), ovn_* the overlay nc point events.  ecap must be at least the
+    real (non-padding) pair count of every sample (the caller computes it
+    on the host): the [K, mc] expansion is mostly padding, and it is
+    compacted to ecap slots before the sort and the table walks.  Returns
+    X5's (best, best_dfs_row, num_best, hu_best) [+ the runner-up 4-tuple
+    with second=True]."""
+    P = ref_cols.shape[0]
+    B, K = pos.shape
+    dev = pos.device
+    u, am, ap, rootm, effm, pair_ok, gv, km = _expand_events(
+        csc_ptr, csc_node, csc_meta, pos, gval, kmiss, P, mc)
+    valid_e = pos < P
+    cols = pos.clamp(0, P - 1).long()
+    rk_e = torch.where(valid_e, ref_cols[cols].to(torch.int32), 0)
+    rk = rk_e[:, :, None]
+
+    def corr_nobm(a):
+        t1 = (~km & ((gv & a) == 0)).to(torch.int32)
+        return t1 - (a != rk).to(torch.int32)
+
+    c_am = corr_nobm(am)
+    d_range = c_am - corr_nobm(ap)
+    matched = (gv & am) != 0
+    a_eff = torch.where(matched, am, ap)
+    t1_bm = (~km & ((gv & a_eff) == 0)).to(torch.int32)
+    sub_bm = torch.where((rk & am) != 0, (am != rk).to(torch.int32),
+                         (ap != rk).to(torch.int32))
+    d_point = torch.where(rootm == 1, 0, (t1_bm - sub_bm) - c_am)
+    d_nc = torch.where((effm == 1) & (rootm == 0),
+                       matched.to(torch.int32)
+                       - ((rk & am) != 0).to(torch.int32), 0)
+    ok = pair_ok.to(torch.int32)
+    W = K * mc
+    d_range = (d_range * ok).reshape(B, W)
+    d_point = (d_point * ok).reshape(B, W)
+    d_nc = (d_nc * ok).reshape(B, W)
+    r_s = torch.where(pair_ok, dfs_of[u].to(torch.int32),
+                      n_pad).reshape(B, W)
+    r_e = torch.where(pair_ok, dfs_end_of[u].to(torch.int32),
+                      n_pad).reshape(B, W)
+
+    # compact the ok pairs into ecap slots (cumsum-position scatter), so
+    # the sorts and table walks run at O(ecap), not O(K * mc); every pad
+    # pair gets a distinct overflow slot past ecap, so no two stores of a
+    # row share a destination
+    okf = pair_ok.reshape(B, W)
+    lane = torch.arange(W, device=dev).expand(B, W)
+    dst = torch.where(okf, torch.cumsum(okf, dim=1) - 1, ecap + lane)
+
+    def compact(x, fill):
+        out = torch.full((B, ecap + W), fill, dtype=x.dtype, device=dev)
+        out.scatter_(1, dst, x)
+        return out[:, :ecap]
+
+    d_range = compact(d_range, 0)
+    d_point = compact(d_point, 0)
+    d_nc = compact(d_nc, 0)
+    r_s = compact(r_s, n_pad)
+    r_e = compact(r_e, n_pad)
+
+    add0 = (~kmiss & valid_e
+            & ((gval.to(torch.int32) & rk_e) == 0)).sum(1, dtype=torch.int32)
+
+    # per-sample score events (3 per pair) + overlay events + the overlay
+    # nc rows as zero-val boundaries (their rows must split segments)
+    ov_rows = ov_rows.to(torch.int32)
+    ovn_rows = ovn_rows.to(torch.int32)
+    ev_rows = torch.cat([r_s, (r_s + 1).clamp(max=n_pad), r_e, ov_rows,
+                         ovn_rows], 1)
+    ev_vals = torch.cat([d_range + d_point, -d_point, -d_range,
+                         ov_vals.to(torch.int32),
+                         torch.zeros_like(ovn_rows)], 1)
+    # nc payload channel aligned with the event streams: pair starts carry
+    # d_nc, overlay-nc boundary rows carry ovn_vals, the rest 0
+    ev_ncv = torch.cat([d_nc, torch.zeros_like(d_point),
+                        torch.zeros_like(d_range), torch.zeros_like(ov_rows),
+                        ovn_vals.to(torch.int32)], 1)
+    rows_sorted, order = torch.sort(ev_rows, dim=1, stable=True)
+    P_incl = torch.cumsum(torch.gather(ev_vals, 1, order), dim=1,
+                          dtype=torch.int32)
+    nc_events = torch.cumsum(torch.gather(ev_ncv, 1, order), dim=1,
+                             dtype=torch.int32)
+
+    table, hu_s, L = _build_seg_table(
+        base_dfs, nc_base_dfs, num_mut_dfs, is_leaf_dfs, is_root_dfs,
+        active_dfs, num_leaves_dfs, bfs_rank_dfs, n_pad)
+    margs = (base_dfs, nc_base_dfs, num_mut_dfs, is_leaf_dfs,
+             is_root_dfs, active_dfs, num_leaves_dfs, bfs_rank_dfs)
+    cands = _seg_candidates(table, hu_s, L, rows_sorted, P_incl, add0,
+                            nc_events, *margs, n_pad)
+    out = _seg_reduce(cands)
+    if second:
+        cands2 = _seg_candidates(table, hu_s, L, rows_sorted, P_incl,
+                                 add0, nc_events, *margs, n_pad,
+                                 exclude_row=out[1])
+        out = out + _seg_reduce(cands2)
+    return out
+
+
+def pad_overlay_by_sample(idx, b, val, b_pad: int, n_pad: int):
+    """Flat overlay event streams (row, sample, val) -> per-sample padded
+    [b_pad, E] int32 arrays for X9 (padding row = n_pad), E the largest
+    per-sample count (the JAX engine rounded it up a bucket ladder for
+    XLA's shapes; eager torch takes any width)."""
+    b = np.asarray(b, dtype=np.int64)
+    counts = (np.bincount(b, minlength=b_pad) if len(b)
+              else np.zeros(b_pad, np.int64))
+    E = int(counts.max()) if len(b) else 0
+    rows = np.full((b_pad, E), n_pad, np.int32)
+    vals = np.zeros((b_pad, E), np.int32)
+    if len(b):
+        order = np.argsort(b, kind="stable")
+        ofs = np.cumsum(counts) - counts   # group start per sample
+        pos_in = np.arange(len(b)) - ofs[b[order]]
+        rows[b[order], pos_in] = np.asarray(idx)[order]
+        vals[b[order], pos_in] = np.asarray(val)[order]
+    return rows, vals

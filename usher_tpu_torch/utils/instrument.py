@@ -13,8 +13,11 @@ by -DSAVE_PROFILE and the TIMEIT() macro) and the coarse `Timer` that prints
   - Sessions can be armed externally with USHER_TPU_PROFILE=<path> — the
     CLIs call `maybe_begin_session_from_env()` at startup.
 
-Device selection lives in utils/device.py.  A device-level trace
-(`device_trace`, through torch.profiler) is not ported yet.
+  - `device_trace(logdir)` records a device-level trace through
+    torch.profiler (the JAX package's wraps jax.profiler) and writes it
+    into logdir as a Chrome trace.
+
+Device selection lives in utils/device.py.
 """
 
 from __future__ import annotations
@@ -123,3 +126,22 @@ def maybe_begin_session_from_env() -> bool:
         import atexit
         atexit.register(inst.end_session)
     return True
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """Profile the enclosed block with torch.profiler and export a Chrome
+    trace to ``logdir/trace.<pid>.json``: CPU and CUDA activity when the
+    port runs on a card (USHER_TPU_PLATFORM, utils/device.py), CPU activity
+    alone on the CPU.  Yields the profiler, whose ``key_averages()`` sums
+    the time by op after the block."""
+    from torch.profiler import ProfilerActivity, profile
+    from .device import apply_platform_env
+    activities = [ProfilerActivity.CPU]
+    if apply_platform_env().type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir,
+                                          f"trace.{os.getpid()}.json"))
