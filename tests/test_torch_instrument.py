@@ -9,7 +9,9 @@ session ends; the file is the reference's Chrome trace; past the record
 cap the oldest records go to the file; under torch.profiler each span is a
 user_annotation range around the ops run inside it.  The program's spans:
 one `direct:load` and `direct:write` a job, one `direct:batch` a batch, the
-flushes' `appended` counts summing to the BigMAT's growth, the batches'
+flushes' `appended` counts summing to the BigMAT's growth, a flush's
+`map_pieces` equal to the runs of old rows its row map moved by one offset
+(no span when nothing is queued), the batches'
 `rescores` counts equal to the placer's fallbacks and to its
 `direct:rescore` spans, the Tree driver's `placement:rescore` spans equal to
 `apply_batch`'s `rescores`, one `server:request` a request; and a session
@@ -19,11 +21,13 @@ changes nothing the CLI prints or writes.
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
 from usher_tpu_torch.cli import usher_server_cli as tserver
 from usher_tpu_torch.cli.usher_cli import main as torch_main
+from usher_tpu_torch.core.bigmat import BigMAT
 from usher_tpu_torch.placement.direct import DirectOptions, DirectPlacer
 from usher_tpu_torch.utils import instrument as I
 
@@ -334,6 +338,7 @@ def test_direct_jobs_span_tree(fixture_pb, tmp_path, monkeypatch, session,
                     if ids & {a.id for a in _chain(s, by_id)}]
         flushes = of_job("bigmat:flush")
         assert flushes
+        assert all(s.counts["map_pieces"] >= 1 for s in flushes)
         assert sum(s.counts["appended"] for s in flushes) == \
             placer.big.N - n0
         assert flushes[-1].args["rows"] == placer.big.N
@@ -360,6 +365,42 @@ def _chain(span, by_id):
         span = by_id[span.cause]
         out.append(span)
     return out
+
+
+@pytest.mark.parametrize("n_ops", [0, 24])
+def test_bigmat_flush_counts_its_map_pieces(session, n_ops):
+    """A flush's record carries `appended`, `splits` and `map_pieces`, the
+    pieces of its composed row map: the runs of old DFS rows that moved by
+    one offset.  A flush with nothing queued opens no span."""
+    inst, _ = session
+    rng = np.random.default_rng(n_ops)
+    N = 200
+    parent = np.zeros(N, np.int32)
+    parent[1:] = (rng.random(N - 1) * np.arange(1, N)).astype(np.int32)
+    big = BigMAT(parent, np.zeros(N + 1, np.int64), np.zeros(0, np.int32),
+                 np.zeros(0, np.uint8), np.zeros(0, np.uint8),
+                 np.arange(4, dtype=np.int64),
+                 np.array([1, 2, 4, 8], np.uint8), device="cpu")
+    order0 = big.dfs_order.copy()
+    splits = 0
+    for k in range(n_ops):
+        if k % 3:
+            big.queue_sibling_split(int(rng.integers(1, N)), [], [])
+            splits += 1
+        else:
+            big.queue_child_insert(int(rng.integers(0, N)), [])
+    big._flush()
+    inst.end_session()
+    flushes = [s for s in inst.spans() if s.name == "bigmat:flush"]
+    if not n_ops:
+        assert flushes == []
+        return
+    (span,) = flushes
+    moved = big.dfs_of[order0] - np.arange(N)
+    assert span.counts == {"appended": big.N - N, "splits": splits,
+                           "map_pieces": 1 + int(np.count_nonzero(
+                               moved[1:] != moved[:-1]))}
+    assert span.args == {"rows": big.N}
 
 
 def test_tree_driver_rescores_are_counted(fixture_pb, tmp_path, session):

@@ -697,8 +697,9 @@ class BigMAT:
     #
     # Placement surgery never changes an existing node's PATH STATE, so the
     # snapshot arrays can be maintained exactly under appends: new slots at
-    # the end, vectorized DFS-row shifts, O(|mutations|) aggregate patches
-    # via the F-prefix chain, and an overlay CSC for new/moved mutations.
+    # the end, one composed DFS-row map a flush, O(|mutations|) aggregate
+    # patches via the F-prefix chain, and an overlay CSC for new/moved
+    # mutations.
     # This replaces the per-epoch from_tree Python rebuild (the reference's
     # followers patch their replicas the same way instead of re-receiving
     # the tree, place_sample_follower.cpp:95-249).  Queued by the engine,
@@ -755,10 +756,36 @@ class BigMAT:
         with timeit("bigmat:flush", rows=self.N + n_new):
             count("appended", n_new)
             count("splits", sum(p[0] == "split" for p in self._pending))
-            self._flush_pending()
+            count("map_pieces", self._flush_pending())
 
-    def _flush_pending(self) -> None:
-        """Apply the queued appends to the arrays (one epoch)."""
+    def _flush_pending(self) -> int:
+        """Apply the queued appends to the arrays (one epoch) in one pass;
+        returns the number of pieces of the composed row map.
+
+        Each append is a piecewise translation of DFS rows: a child insert
+        at row r moves every row >= r down by one; a split rotates u's
+        block [lo, hi) past its later siblings to the end of its parent's
+        interval and puts X and s in front of it.  The appends are
+        replayed in queue order on the flush's own keys only: `b` / `off`
+        hold the map from old rows to the current ones as sorted pieces
+        (old start, offset), `npos` the current rows of the new nodes, and
+        `grown` how many rows each subtree gained (walked up the chains
+        with the leaf counts).  A row an append reads (where u starts,
+        where u or its parent ends) is the old row pushed through the map,
+        or the new node's entry, plus the subtree's current size.  So the
+        order of the new rows is the sequential one: deeper target first
+        at a shared boundary, X then s then u's subtree, same-target
+        inserts in queue order.
+
+        The N-long arrays are then read and written a fixed number of
+        times, whatever the number of appends: dfs_of through the
+        offsets expanded by row; dfs_end_of as dfs_of plus the subtree's
+        size, since every subtree stays contiguous, rotations included
+        (this replaces the tie rules of shifting the ends append by
+        append, `anc_mask` and `later_end`: ancestors sharing an insert's
+        boundary grow, the last-child chains below its target do not);
+        level plus one for each split target above the row, by a
+        difference array over the new DFS rows."""
         pend = self._pending
         self._pending = []
         n_new = sum(1 if p[0] == "child" else 2 for p in pend)
@@ -772,9 +799,7 @@ class BigMAT:
             out[:N0] = a
             return out
 
-        BIGROW = np.int32(1 << 30)
         self.parent = grow(self.parent, 0)
-        self.level = grow(self.level, 0)
         self.is_leaf = grow(self.is_leaf, True)
         self.active = grow(self.active, True)
         self.num_leaves = grow(self.num_leaves, 1)
@@ -784,48 +809,69 @@ class BigMAT:
         self.F = grow(self.F, 0)
         self.child_key = grow(self.child_key, 0)
         self.child_count = grow(self.child_count, 0)
-        self.dfs_of = grow(self.dfs_of, BIGROW)
-        self.dfs_end_of = grow(self.dfs_end_of, BIGROW)
         self.is_root_mask = grow(self.is_root_mask, False)
         nodes = getattr(self, "_nodes", None)
+        of0, end0 = self.dfs_of, self.dfs_end_of
+        parent = self.parent
+
+        b = np.zeros(1, np.int64)            # piece starts, old rows
+        off = np.zeros(1, np.int64)          # old row -> current row offset
+        npos = np.zeros(n_new, np.int64)     # current rows of new nodes
+        grown = np.zeros(N, np.int32)        # rows gained (new: its size)
+        split_u = []
+
+        def row(v):
+            if v >= N0:
+                return int(npos[v - N0])
+            x = int(of0[v])
+            return x + int(off[np.searchsorted(b, x, "right") - 1])
+
+        def size(v):
+            n = int(grown[v])
+            return n if v >= N0 else n + int(end0[v]) - int(of0[v])
+
+        def move(cs, ds, made):
+            """Compose x -> x + ds[#(cs <= x)] after the map."""
+            nonlocal b, off
+            cs = np.array(cs, np.int64)
+            ds = np.array(ds, np.int64)
+            s = b + off
+            e = np.empty_like(b)
+            e[:-1] = b[1:]
+            e[-1] = N0
+            e += off
+            ci, pi = np.nonzero((s < cs[:, None]) & (cs[:, None] < e))
+            if len(pi):
+                b = np.concatenate([b, cs[ci] - off[pi]])
+                off = np.concatenate([off, off[pi]])
+                o = np.argsort(b, kind="stable")
+                b, off = b[o], off[o]
+                s = b + off
+            off = off + ds[np.searchsorted(cs, s, "right")]
+            keep = np.empty(len(off), bool)
+            keep[0] = True
+            np.not_equal(off[1:], off[:-1], out=keep[1:])
+            b, off = b[keep], off[keep]
+            npos[:made] += ds[np.searchsorted(cs, npos[:made], "right")]
 
         ov_new: list[tuple] = []   # (node, col, par, mut)
         ovq: dict[tuple, int] = {}  # (slot, col) -> ov_new index, for
         # splits whose target u was materialized earlier in THIS flush
         # (its mutations are still local to ov_new, not yet in _ov)
         slot = N0
-        i = 0
-        while i < len(pend):
-            # maximal run of child inserts: ONE vectorized multi-insert
-            # instead of per-pending O(N) shift passes (a serving batch
-            # flushes hundreds of appends at once)
-            j = i
-            while j < len(pend) and pend[j][0] == "child":
-                j += 1
-            if j - i >= 2:
-                run = pend[i:j]
-                self._apply_child_run(run, slot, ov_new, ovq, nodes)
-                slot += len(run)
-                i = j
-                continue
-            p = pend[i]
-            i += 1
+        for p in pend:
             if p[0] == "child":
                 _, u, s_muts, s_node = p
                 s = slot
                 slot += 1
-                r_s = int(self.dfs_end_of[u])
-                anc_mask = (self.dfs_end_of == r_s) & \
-                    (self.dfs_of <= self.dfs_of[u])
-                self.dfs_of += self.dfs_of >= r_s
-                self.dfs_end_of += (self.dfs_end_of > r_s) | anc_mask
-                self.dfs_of[s] = r_s
-                self.dfs_end_of[s] = r_s + 1
-                self.parent[s] = u
-                self.level[s] = self.level[u] + 1
+                r_s = row(u) + size(u)
+                move([r_s], [0, 1], s - N0)
+                npos[s - N0] = r_s
+                grown[s] = 1
+                parent[s] = u
                 self.child_key[s] = self.child_count[u]
                 self.child_count[u] += 1
-                self._leaf_count_walk(u)
+                self._leaf_count_walk(u, grown, 1)
                 self._init_new_node(s, u, s_muts, ov_new, ovq)
                 if nodes is not None:
                     nodes.append(s_node)
@@ -833,47 +879,26 @@ class BigMAT:
                 _, u, common, l2, x_node, s_node = p
                 x, s = slot, slot + 1
                 slot += 2
-                pold = int(self.parent[u])
-                lo, hi = int(self.dfs_of[u]), int(self.dfs_end_of[u])
+                pold = int(parent[u])
+                lo, w = row(u), size(u)
+                p_end = row(pold) + size(pold)
                 # host surgery appends X at the END of p's children (and
                 # moves u under X), so canonically u's subtree rotates past
-                # its later siblings to the end of p's interval
-                p_end = int(self.dfs_end_of[pold])
-                if hi < p_end:
-                    w = hi - lo
-                    later_of = (self.dfs_of >= hi) & (self.dfs_of < p_end)
-                    later_end = (self.dfs_end_of > hi) & \
-                        (self.dfs_end_of <= p_end) & ~(self.dfs_of < hi)
-                    sub_of = (self.dfs_of >= lo) & (self.dfs_of < hi)
-                    sub_end = (self.dfs_end_of > lo) & (self.dfs_end_of <= hi)
-                    self.dfs_of[later_of] -= w
-                    self.dfs_end_of[later_end] -= w
-                    self.dfs_of[sub_of] += p_end - hi
-                    self.dfs_end_of[sub_end] += p_end - hi
-                    lo, hi = lo + (p_end - hi), p_end
-                # u's subtree deepens under X
-                sub = (self.dfs_of >= lo) & (self.dfs_of < hi)
-                self.level[sub] += 1
-                # insert X's row immediately before u
-                self.dfs_of += self.dfs_of >= lo
-                self.dfs_end_of += self.dfs_end_of > lo
-                self.dfs_of[x] = lo
-                self.dfs_end_of[x] = int(self.dfs_end_of[u])
-                self.parent[x] = pold
-                self.parent[u] = x
-                self.level[x] = self.level[u] - 1
+                # its later siblings to the end of p's interval; X's row
+                # goes right before it, then s (X.children == [s, u], and
+                # from_tree's DFS follows children-list order)
+                move([lo, lo + w, p_end], [0, p_end - lo - w + 2, -w, 2],
+                     x - N0)
+                npos[x - N0] = p_end - w
+                npos[s - N0] = p_end - w + 1
+                grown[x] = w + 2
+                grown[s] = 1
+                split_u.append(u)
+                parent[x] = pold
+                parent[u] = x
+                parent[s] = x
                 self.child_key[x] = self.child_count[pold]
                 self.child_count[pold] += 1
-                # s inserted inside X, BEFORE u's subtree (host surgery
-                # makes X.children == [s, u], and from_tree's DFS follows
-                # children-list order — keep the numberings identical)
-                r_s = int(self.dfs_of[u])
-                self.dfs_of += self.dfs_of >= r_s
-                self.dfs_end_of += self.dfs_end_of > r_s
-                self.dfs_of[s] = r_s
-                self.dfs_end_of[s] = r_s + 1
-                self.parent[s] = x
-                self.level[s] = self.level[x] + 1
                 # host surgery creates X, then s under X, then moves u:
                 # X.children == [s, u]
                 self.child_key[s] = 0
@@ -881,7 +906,7 @@ class BigMAT:
                 self.child_count[x] = 2
                 self.is_leaf[x] = False
                 self.num_leaves[x] = self.num_leaves[u] + 1
-                self._leaf_count_walk(pold)
+                self._leaf_count_walk(pold, grown, 2)
                 # u loses `common`: patch aggregates + tombstone CSC rows
                 if common:
                     cc = np.array([c for c, _, _ in common], np.int64)
@@ -898,10 +923,36 @@ class BigMAT:
                     nodes.append(x_node)
                     nodes.append(s_node)
 
+        # the N-long passes
+        offs = np.repeat(off.astype(np.int32), np.diff(b, append=N0))
+        dfs_of = np.empty(N, np.int32)
+        np.add(of0, offs[of0], out=dfs_of[:N0])
+        dfs_of[N0:] = npos
+        dfs_end_of = dfs_of + grown
+        dfs_end_of[:N0] += end0
+        dfs_end_of[:N0] -= of0
+        level = grow(self.level, 0)
+        if split_u:
+            t = np.array(split_u, np.int64)
+            steps = np.zeros(N + 1, np.int32)
+            np.add.at(steps, dfs_of[t], 1)
+            np.add.at(steps, dfs_end_of[t], -1)
+            level[:N0] += np.cumsum(steps, dtype=np.int32)[dfs_of[:N0]]
+        # a new node's level: hops up to its nearest old ancestor
+        up = parent[N0:].copy()
+        hops = np.ones(n_new, np.int32)
+        deep = up >= N0
+        while deep.any():
+            up[deep] = parent[up[deep]]
+            hops += deep
+            deep = up >= N0
+        level[N0:] = level[up] + hops
+        self.dfs_of, self.dfs_end_of, self.level = dfs_of, dfs_end_of, level
+
         self.N = N
-        self.max_depth = int(self.level.max()) + 1
+        self.max_depth = int(level.max()) + 1
         dfs_order = np.empty(N, dtype=np.int32)
-        dfs_order[self.dfs_of] = np.arange(N, dtype=np.int32)
+        dfs_order[dfs_of] = np.arange(N, dtype=np.int32)
         self.dfs_order = dfs_order
         ov_new = [t for t in ov_new if t is not None]
         if ov_new:
@@ -922,66 +973,7 @@ class BigMAT:
                   "_clade_dfs_cache"):
             if hasattr(self, k):
                 delattr(self, k)
-
-    def _apply_child_run(self, run, slot0: int, ov_new, ovq,
-                         nodes) -> None:
-        """Vectorized multi-insert: materialize a run of k child appends
-        with ONE set of O(N) passes instead of k.
-
-        Works in run-start coordinates.  Each insert lands at the end of
-        its target's interval; the FINAL left-to-right order of the new
-        rows is by (boundary c, deeper target first, queue order) — two
-        same-boundary inserts at nested targets always end up deeper-first
-        regardless of queue order (the deeper target's boundary is not
-        extended by the shallower insert), matching the sequential path.
-        Old-row shifts become dominance counts over the sorted insert
-        keys: dfs_of += #(c_j <= dfs_of), and dfs_end_of += #(c_j < end
-        OR (c_j == end AND target_dfs >= dfs_of)) — the tie case keeps
-        last-child chains unextended while ancestors sharing the boundary
-        grow, exactly the sequential anc_mask rule.  Subtree-leaf gains
-        fall out as (end shifts - of shifts)."""
-        k = len(run)
-        us = np.array([p[1] for p in run], np.int64)
-        if (us >= slot0).any():
-            raise AssertionError("child-run target queued in the same run")
-        c = self.dfs_end_of[us].astype(np.int64)
-        du = self.dfs_of[us].astype(np.int64)
-        M = np.int64(1) << 31
-
-        of_old = self.dfs_of.astype(np.int64)
-        end_old = self.dfs_end_of.astype(np.int64)
-        sc = np.sort(c)
-        ofc = np.searchsorted(sc, of_old, side="right")
-        kk = np.sort(c * M + (M - 1 - du))
-        endc = np.searchsorted(kk, end_old * M + (M - 1 - of_old),
-                               side="right")
-        self.dfs_of += ofc.astype(self.dfs_of.dtype)
-        self.dfs_end_of += endc.astype(self.dfs_end_of.dtype)
-        self.num_leaves += (endc - ofc).astype(self.num_leaves.dtype)
-
-        # final row of insert j = c_j + (#inserts ordered before it)
-        ordk = np.lexsort((np.arange(k), -du, c))
-        rank = np.empty(k, np.int64)
-        rank[ordk] = np.arange(k)
-        slots = slot0 + np.arange(k)
-        self.dfs_of[slots] = (c + rank).astype(self.dfs_of.dtype)
-        self.dfs_end_of[slots] = (c + rank + 1).astype(
-            self.dfs_end_of.dtype)
-        self.parent[slots] = us
-        self.level[slots] = self.level[us] + 1
-        self.num_leaves[slots] = 1
-        # child keys: same-target inserts append in queue order
-        o2 = np.lexsort((np.arange(k), us))
-        seq = np.arange(k, dtype=np.int64)
-        grp_start = np.r_[True, us[o2][1:] != us[o2][:-1]]
-        seq -= np.maximum.accumulate(np.where(grp_start, seq, 0))
-        self.child_key[slots[o2]] = self.child_count[us[o2]] + seq
-        np.add.at(self.child_count, us, 1)
-        for j, p in enumerate(run):
-            self._init_new_node(int(slots[j]), int(us[j]), p[2], ov_new,
-                                ovq)
-            if nodes is not None:
-                nodes.append(p[3])
+        return len(b)
 
     def _init_new_node(self, slot, parent_slot, muts, ov_new,
                        ovq=None) -> None:
@@ -1006,12 +998,13 @@ class BigMAT:
             self.nc_base[slot] = 0
             self.node_num_mut[slot] = 0
 
-    def _leaf_count_walk(self, start_slot) -> None:
-        """+1 leaf on start_slot and every ancestor (a placement adds
-        exactly one leaf to each containing subtree)."""
+    def _leaf_count_walk(self, start_slot, grown, rows) -> None:
+        """+1 leaf and +rows DFS rows on start_slot and every ancestor (a
+        placement adds exactly one leaf to each containing subtree)."""
         s = int(start_slot)
         while True:
             self.num_leaves[s] += 1
+            grown[s] += rows
             p = int(self.parent[s])
             if p == s:
                 break
