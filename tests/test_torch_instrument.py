@@ -11,7 +11,8 @@ user_annotation range around the ops run inside it.  The program's spans:
 one `direct:load` and `direct:write` a job, one `direct:batch` a batch, the
 flushes' `appended` counts summing to the BigMAT's growth, a flush's
 `map_pieces` equal to the runs of old rows its row map moved by one offset
-(no span when nothing is queued), the batches'
+(no span when nothing is queued), one `bigmat:ranks` span a read of
+ranks that a flush left dirty and none on a clean read, the batches'
 `rescores` counts equal to the placer's fallbacks and to its
 `direct:rescore` spans, the Tree driver's `placement:rescore` spans equal to
 `apply_batch`'s `rescores`, one `server:request` a request; and a session
@@ -401,6 +402,48 @@ def test_bigmat_flush_counts_its_map_pieces(session, n_ops):
                            "map_pieces": 1 + int(np.count_nonzero(
                                moved[1:] != moved[:-1]))}
     assert span.args == {"rows": big.N}
+
+
+def test_ranks_span_per_read_of_dirty_ranks(session):
+    """`bigmat:ranks` opens once for each read of ranks that a flush left
+    dirty, with the rows it ranked, and never on a read of clean ranks:
+    `bfs_rank` read twice, the scoring metadata after it, a flush with
+    nothing queued."""
+    inst, _ = session
+    rng = np.random.default_rng(11)
+    N = 300
+    parent = np.zeros(N, np.int32)
+    parent[1:] = (rng.random(N - 1) * np.arange(1, N)).astype(np.int32)
+    big = BigMAT(parent, np.zeros(N + 1, np.int64), np.zeros(0, np.int32),
+                 np.zeros(0, np.uint8), np.zeros(0, np.uint8),
+                 np.arange(4, dtype=np.int64),
+                 np.array([1, 2, 4, 8], np.uint8), device="cpu")
+    reads = []
+
+    def ranks():
+        return [s.args["rows"] for s in inst.spans()
+                if s.name == "bigmat:ranks"]
+
+    big.bfs_rank
+    assert ranks() == []
+    for k in range(3):
+        big.queue_child_insert(int(rng.integers(0, N)), [])
+        big.queue_sibling_split(int(rng.integers(1, N)), [], [])
+        big._flush()
+        assert big._ranks_dirty
+        if k == 1:
+            big._dfs_meta(spr=False)     # the scoring call's read
+        else:
+            big.bfs_rank
+        reads.append(big.N)
+        big.bfs_rank
+        big._dfs_meta(spr=False)
+        big._flush()
+        big.bfs_rank
+        assert ranks() == reads
+    inst.end_session()
+    assert [s.args["rows"] for s in inst.spans()
+            if s.name == "bigmat:ranks"] == [N + 3, N + 6, N + 9]
 
 
 def test_tree_driver_rescores_are_counted(fixture_pb, tmp_path, session):

@@ -13,7 +13,8 @@ and of the JAX package on the same pb and VCF, and the placements, paths
 and final tree those of the benchmark's plain reference
 (`benchmark/reference/placer.py`), which places every unit onto its own
 copy of the tree.  After each request the resident BigMAT and the placer
-hold what a fresh load holds, array for array.  Tolerance: none.
+hold what a fresh load holds, array for array, and a request of one batch
+recomputes no BFS ranks.  Tolerance: none.
 """
 
 import os
@@ -244,6 +245,42 @@ def test_requests_in_a_row_match_fresh_runs_and_reference(world, tmp_path):
     # bits the restore cleared on the device
     assert restore[-1].counts["bytes"] > 0
     assert len(by["direct:batch"]) == 7     # 1 + 2 + 1 + 1 + 2 batches
+
+
+def test_one_batch_requests_recompute_no_ranks(world, tmp_path):
+    """A request of one batch starts from the restored tree, whose ranks
+    are clean, and reads none after its flush: no `bigmat:ranks` span
+    inside its `server:request`, while the load's own sweep stays outside
+    them."""
+    pb = world["pb"]
+    listing = tmp_path / "mats.txt"
+    listing.write_text(pb + "\n")
+    store = srv.MatStore(str(listing))
+    inst = I.Instrumentor.get()
+    inst.begin_session(str(tmp_path / "spans.json"))
+    store.direct_tree(pb)
+    for k in (0, 3):
+        _, size, flags = REQUESTS[k]
+        assert size <= 64
+        out = str(tmp_path / f"r{k}")
+        assert srv.run_request(_argv(pb, world["units"][k], out, flags),
+                               store) == 0
+    inst.end_session()
+    spans = inst.spans()
+    by_id = {s.id: s for s in spans}
+
+    def outer(s):
+        while s.cause in by_id:
+            s = by_id[s.cause]
+        return s
+    inside = {}
+    for s in spans:
+        inside.setdefault((outer(s).name, s.name), []).append(s)
+    assert len(inside[("server:request", "server:request")]) == 2
+    assert len(inside[("server:request", "direct:batch")]) == 2
+    assert inside[("server:request", "bigmat:flush")]
+    assert ("server:request", "bigmat:ranks") not in inside
+    assert len(inside[("server:reload", "bigmat:ranks")]) == 1
 
 
 def test_request_names_repeat_and_new_sites(world, tmp_path):

@@ -81,20 +81,50 @@ class BigMAT:
     """
 
     _ranks_dirty = False
+    _bfs_rank_dfs = None     # bfs_rank[dfs_order], made on demand
 
     @property
     def bfs_rank(self):
-        """Exact BFS tie-break ranks; recomputed lazily after incremental
-        appends (the full vectorized sweep is the dominant per-flush cost
-        at pandemic scale, and most flush consumers never read ranks)."""
+        """Exact BFS tie-break ranks (slot -> position in the host tree's
+        breadth_first_expansion); recomputed lazily after incremental
+        appends, since most flush consumers never read ranks.
+
+        INVARIANT, which `_recompute_ranks` rests on: every node's children
+        follow one another in the DFS (dfs_of) in child_key order, the order
+        of the host tree's children lists.  Then, within one level, BFS order
+        is preorder: by induction on the level, level-L nodes sort by their
+        parents' BFS order, then child key, which is their parents'
+        preorder, then child order; and two nodes of one level are never
+        ancestor and descendant.  So a node's rank is the count of nodes on
+        shallower levels plus that of the nodes of its own level earlier in
+        the DFS.  `_precompute` orders children by slot, and a flush puts
+        each new row last among its parent's children: a child insert at
+        the end of its target's interval, a split's X at the end of its
+        parent's interval, with X's children s then u.  A change to where a
+        flush puts new rows has to keep this."""
         if self._ranks_dirty:
             self._recompute_ranks()
+        if self._bfs_rank is None:
+            rank = np.empty(self.N, np.int32)
+            rank[self.dfs_order] = self._bfs_rank_dfs
+            self._bfs_rank = rank
         return self._bfs_rank
 
     @bfs_rank.setter
     def bfs_rank(self, v):
         self._bfs_rank = v
+        self._bfs_rank_dfs = None
         self._ranks_dirty = False
+
+    @property
+    def bfs_rank_dfs(self):
+        """bfs_rank in DFS order (DFS row -> rank), as the scoring
+        metadata holds it."""
+        if self._ranks_dirty:
+            self._recompute_ranks()
+        if self._bfs_rank_dfs is None:
+            self._bfs_rank_dfs = self._bfs_rank[self.dfs_order]
+        return self._bfs_rank_dfs
 
     def __init__(self, parent, mut_ptr, mut_col, mut_par, mut_mut,
                  positions, ref, num_leaves=None, bfs_rank=None,
@@ -587,7 +617,7 @@ class BigMAT:
             "is_root": self.is_root_mask[o],
             "active": self.active[o],
             "num_leaves": self.num_leaves[o],
-            "bfs_rank": self.bfs_rank[o],
+            "bfs_rank": self.bfs_rank_dfs,
             "level": self.level.astype(np.int32)[o],
             "dfs_of": self.dfs_of.astype(np.int64),
         }
@@ -1047,33 +1077,23 @@ class BigMAT:
                 f"mutation to remove not found: node {u_slot} col {int(c)}")
 
     def _recompute_ranks(self) -> None:
-        """Exact BFS ranks from (level, parent rank, child key) — a
-        vectorized level sweep reproducing the host tree's
-        breadth_first_expansion order."""
+        """Exact BFS ranks, the host tree's breadth_first_expansion order,
+        from the DFS order and the levels (the invariant of `bfs_rank`):
+        one stable sort of the levels taken in DFS order lists the DFS rows
+        in BFS order.  The levels sort in the narrowest type that holds
+        them, uint8 or int16 by numpy's radix sort.  Only the DFS order of
+        the ranks is made here, which is what scoring reads; `bfs_rank`
+        scatters it to slots when it is read."""
         with timeit("bigmat:ranks", rows=self.N):
-            self._sweep_ranks()
-
-    def _sweep_ranks(self) -> None:
-        N = self.N
-        level = self.level
-        order = np.argsort(level, kind="stable")
-        bounds = np.searchsorted(level[order],
-                                 np.arange(int(level.max()) + 2))
-        rank = np.zeros(N, dtype=np.int64)
-        start = 0
-        for li in range(len(bounds) - 1):
-            idx = order[bounds[li]:bounds[li + 1]]
-            if len(idx) == 0:
-                continue
-            if li == 0:
-                rank[idx] = np.arange(len(idx))
-            else:
-                o2 = np.lexsort((self.child_key[idx],
-                                 rank[self.parent[idx]]))
-                rank[idx[o2]] = start + np.arange(len(idx))
-            start += len(idx)
-        self._bfs_rank = rank.astype(np.int32)
-        self._ranks_dirty = False
+            d = self.max_depth
+            dt = (np.uint8 if d <= 1 << 8 else
+                  np.int16 if d <= 1 << 15 else np.int32)
+            lev = self.level.astype(dt).take(self.dfs_order)
+            perm = np.argsort(lev, kind="stable")   # BFS position -> row
+            rank_dfs = np.empty(self.N, np.int32)
+            rank_dfs[perm] = np.arange(self.N, dtype=np.int32)
+            self._bfs_rank, self._bfs_rank_dfs = None, rank_dfs
+            self._ranks_dirty = False
 
     # --- a tree kept across requests ----------------------------------------
     #
