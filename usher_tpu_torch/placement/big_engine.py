@@ -27,7 +27,7 @@ from ..core.tree import Mutation, Tree
 from ..ops.placement import placement_outputs
 from ..utils.device import apply_platform_env
 from ..utils.instrument import timeit
-from .driver import SampleResult
+from .driver import SampleResult, ScoreSnapshot
 
 
 class _FlatShim:
@@ -112,7 +112,7 @@ class BigPlacementEngine:
         return self._big
 
     def score_samples(self, samples_mutations, want_matrix=False,
-                      exclude_slots=None):
+                      exclude_slots=None, snapshot=False):
         big = self._ensure()
         for muts in samples_mutations:
             muts.sort(key=lambda m: m.position)
@@ -133,6 +133,11 @@ class BigPlacementEngine:
         num_leaves = big.num_leaves
         bfs_rank = big.bfs_rank
         nodes = big._nodes
+        slot_of = self._slot_of
+        snap = (ScoreSnapshot(score, valid, has_unique, nodes,
+                              lambda n: slot_of.get(id(n), -1), num_leaves,
+                              int(big.active.sum()))
+                if snapshot else None)
         results = []
         for b in range(len(samples_mutations)):
             s_row, v_row, hu_row = score[b], valid[b], has_unique[b]
@@ -151,6 +156,7 @@ class BigPlacementEngine:
                 best_has_unique=bool(hu_row[best_slot]),
                 tied_nodes=[nodes[s] for s in tied_slots],
                 tied_has_unique=[bool(hu_row[s]) for s in tied_slots],
+                snapshot=snap, row=b,
             )
             if want_matrix:
                 # slot -> BFS order (identity right after from_tree;

@@ -71,6 +71,22 @@ class UsherOptions:
 
 
 @dataclass
+class ScoreSnapshot:
+    """The full rows of one score_samples call, kept for a batch (as
+    references): score, valid and has_unique [B, R] in the engine's row
+    space, the row -> node list, the node -> row lookup (-1 for a node the
+    snapshot lacks), and the subtree leaf counts [R] and node count of the
+    tree that was scored."""
+    score: np.ndarray
+    valid: np.ndarray
+    has_unique: np.ndarray
+    nodes: list
+    row_of: object
+    num_leaves: np.ndarray
+    num_nodes: int
+
+
+@dataclass
 class SampleResult:
     """Exact placement result for one sample against a tree snapshot."""
     best_score: int
@@ -81,6 +97,10 @@ class SampleResult:
     tied_has_unique: list = field(default_factory=list)
     scores_bfs: np.ndarray | None = None                 # per BFS node (for -p)
     valid_bfs: np.ndarray | None = None
+    # with score_samples(snapshot=True): the batch's rows, this sample's row
+    snapshot: ScoreSnapshot | None = field(default=None, repr=False,
+                                           compare=False)
+    row: int = field(default=-1, repr=False, compare=False)
 
 
 class PlacementEngine:
@@ -130,12 +150,14 @@ class PlacementEngine:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     def score_samples(self, samples_mutations, want_matrix=False,
-                      exclude_slots=None, restrict_slots=None):
+                      exclude_slots=None, restrict_slots=None,
+                      snapshot=False):
         """Score a batch of samples against the current tree.
 
         exclude_slots: optional per-sample node slot to invalidate.
         restrict_slots: optional per-sample iterable of ALLOWED node slots
         (None entries mean unrestricted).
+        snapshot: attach the batch's ScoreSnapshot to every result.
         Returns a list of SampleResult (one per sample)."""
         flat = self.flat
         st_dev, parent_dev = flat.sync()
@@ -162,6 +184,9 @@ class PlacementEngine:
         bfs = meta["bfs"]
         bfs_rank = meta["bfs_rank"]
         num_leaves = meta["num_leaves"]
+        snap = (ScoreSnapshot(score, valid, has_unique, flat._slot_node,
+                              lambda n: n.slot, num_leaves, len(bfs))
+                if snapshot else None)
         results = []
         for b in range(len(samples_mutations)):
             s_row, v_row, hu_row = score[b], valid[b], has_unique[b]
@@ -188,6 +213,7 @@ class PlacementEngine:
                 best_has_unique=bool(hu_row[best_slot]),
                 tied_nodes=[flat._slot_node[s] for s in tied_slots],
                 tied_has_unique=[bool(hu_row[s]) for s in tied_slots],
+                snapshot=snap, row=b,
             )
             if want_matrix:
                 slots = np.array([n.slot for n in bfs])
@@ -371,6 +397,105 @@ class PlacementEngine:
             self.flat.add_node(sample_node)
 
 
+class BatchDelta:
+    """A batch's own changes over its scoring snapshot, so that every
+    in-batch question is answered without a pass over the whole tree.
+
+    Earlier applies in a batch change only the score of the node whose
+    branch was split, the nodes the batch created, and the tie-break
+    metadata.  So a sample's exact result on the current tree is the
+    snapshot row with those nodes masked, against their host scores; BFS
+    order is the order of (depth, child-index path from the root), read
+    from a node's ancestors; a subtree's leaf count is the snapshot's plus
+    what the batch's applies added, tallied along each new sample's
+    ancestors."""
+
+    def __init__(self, snap: ScoreSnapshot):
+        self.snap = snap
+        self.num_nodes = snap.num_nodes
+        self._leaves: dict[int, int] = {}   # id(node) -> current count
+
+    def leaf_count(self, node) -> int:
+        c = self._leaves.get(id(node))
+        if c is None:
+            c = int(self.snap.num_leaves[self.snap.row_of(node)])
+        return c
+
+    def record_apply(self, sample_node, split_node=None) -> None:
+        """Tally an applied placement: a child of its parent, or, with
+        split_node, a sibling of split_node under a new internal node."""
+        leaves = self._leaves
+        leaves[id(sample_node)] = 1
+        n = sample_node.parent
+        if split_node is not None:
+            leaves[id(n)] = self.leaf_count(split_node) + 1
+            n = n.parent
+            self.num_nodes += 2
+        else:
+            self.num_nodes += 1
+        while n is not None:
+            leaves[id(n)] = self.leaf_count(n) + 1
+            n = n.parent
+
+    def correct(self, res: SampleResult, check_nodes: list,
+                checks: list) -> SampleResult:
+        """res's exact result on the current tree: its snapshot row with
+        check_nodes masked, against their host scores `checks`."""
+        snap, b = self.snap, res.row
+        s_row = snap.score[b]
+        vs = np.where(snap.valid[b], s_row, 1 << 30)
+        rows = [r for r in map(snap.row_of, check_nodes)
+                if 0 <= r < len(vs)]
+        vs[rows] = 1 << 30
+        best = int(vs.min())
+        for d in checks:
+            if d.is_valid and d.set_difference < best:
+                best = d.set_difference
+        tied_rows = np.nonzero(vs == best)[0]
+        nodes = [snap.nodes[r] for r in tied_rows.tolist()]
+        hus = snap.has_unique[b][tied_rows].tolist()
+        for node, d in zip(check_nodes, checks):
+            if d.is_valid and d.set_difference == best:
+                nodes.append(node)
+                hus.append(bool(d.has_unique))
+        out = SampleResult(best_score=best, num_best=len(nodes),
+                           best_node=None, best_has_unique=False,
+                           tied_nodes=nodes, tied_has_unique=hus)
+        self.refresh_winner(out)
+        return out
+
+    def refresh_winner(self, res: SampleResult) -> None:
+        """Order res's tie set by the current tree's BFS and re-resolve the
+        winner: max leaves, then max BFS rank (usher_mapper.cpp:476-497)."""
+        paths: dict[int, tuple] = {}
+        index: dict[int, dict] = {}
+
+        def key(node):
+            chain = []
+            while node.parent is not None and id(node) not in paths:
+                chain.append(node)
+                node = node.parent
+            path = paths.get(id(node), ())
+            for c in reversed(chain):
+                p = c.parent
+                idx = index.get(id(p))
+                if idx is None:
+                    idx = index[id(p)] = {id(x): i for i, x
+                                          in enumerate(p.children)}
+                path = paths[id(c)] = path + (idx[id(c)],)
+            return len(path), path
+
+        order = sorted(range(len(res.tied_nodes)),
+                       key=lambda i: key(res.tied_nodes[i]))
+        res.tied_nodes = [res.tied_nodes[i] for i in order]
+        res.tied_has_unique = [res.tied_has_unique[i] for i in order]
+        leaves = [self.leaf_count(n) for n in res.tied_nodes]
+        top = max(leaves)
+        best_i = max(i for i, c in enumerate(leaves) if c == top)
+        res.best_node = res.tied_nodes[best_i]
+        res.best_has_unique = res.tied_has_unique[best_i]
+
+
 def _mesh_from_options(opts: UsherOptions, device):
     """The (data, model) mesh that opts.mesh_devices asks for, or None: -1
     takes every card of every process when there is more than one, N > 1
@@ -496,51 +621,24 @@ def run_usher(T: Tree, missing_samples: list[MissingSample], opts: UsherOptions,
         # Batched scoring with exact sequential semantics: a whole batch is
         # scored against a frozen tree snapshot in one device call; before
         # applying each proposal, cheap host checks prove it equals what a
-        # sequential re-score would produce (or trigger an exact re-score).
-        # Earlier applies in a batch only change (a) scores of the touched
-        # node whose branch was split, (b) the two new nodes, (c) tie-break
+        # sequential re-score would produce, or correct it exactly from the
+        # snapshot and the batch's own changes (BatchDelta).  Earlier
+        # applies in a batch only change (a) scores of the touched node
+        # whose branch was split, (b) the two new nodes, (c) tie-break
         # metadata (leaf counts / BFS ranks) -- each is checked below.
         bsz = max(1, opts.batch_size)
-        fresh_order = {"meta": None}  # lazily recomputed tie-break metadata
-
-        def _fresh_rank_leaves():
-            if fresh_order["meta"] is None:
-                bfs = T.breadth_first_expansion()
-                rank = {id(n): r for r, n in enumerate(bfs)}
-                cnt: dict[int, int] = {}
-                for n in reversed(bfs):
-                    cnt[id(n)] = (1 if n.is_leaf()
-                                  else sum(cnt[id(c)] for c in n.children))
-                fresh_order["meta"] = (rank, cnt)
-            return fresh_order["meta"]
-
-        def _refresh_winner(res: SampleResult) -> None:
-            """Re-resolve the tie-break (max leaves, then max BFS rank;
-            usher_mapper.cpp:476-497) against the CURRENT tree when the
-            snapshot's ordering metadata went stale."""
-            rank, cnt = _fresh_rank_leaves()
-            pairs = sorted(zip(res.tied_nodes, res.tied_has_unique),
-                           key=lambda p: rank[id(p[0])])
-            res.tied_nodes = [p[0] for p in pairs]
-            res.tied_has_unique = [p[1] for p in pairs]
-            best_i = max(range(len(pairs)),
-                         key=lambda i: (cnt[id(pairs[i][0])],
-                                        rank[id(pairs[i][0])]))
-            res.best_node = pairs[best_i][0]
-            res.best_has_unique = pairs[best_i][1]
-
         flat_batches = [indexes[i:i + bsz] for i in range(0, len(indexes), bsz)]
         for j, batch_idx in enumerate(flat_batches):
             batch = [missing_samples[i] for i in batch_idx]
             with timeit("placement:score_batch", batch=j):
                 pres = engine.score_samples(
                     [s.mutations for s in batch],
-                    want_matrix=opts.print_parsimony_scores)
+                    want_matrix=opts.print_parsimony_scores, snapshot=True)
+            delta = BatchDelta(pres[0].snapshot)
             # nodes whose score could differ from the snapshot due to earlier
             # applies in this batch (split node + the nodes it created)
             check_nodes: list = []
             check_ids: set[str] = set()
-            tree_dirty = False
 
             with timeit("placement:apply_batch", batch=j,
                         samples=len(batch)):
@@ -562,31 +660,35 @@ def run_usher(T: Tree, missing_samples: list[MissingSample], opts: UsherOptions,
                                      "Parsimony-increasing mutations (for optimal nodes)\n")
 
                     if check_nodes:
+                        # the tree changed since the snapshot (an apply
+                        # adds at least the new sample to check_nodes)
                         stale = any(t.identifier in check_ids
                                     for t in res.tied_nodes)
+                        checks = []
                         if not stale:
                             for node in check_nodes:
                                 d = score_placement(node, s.mutations,
                                                     compute_vecs=False)
+                                checks.append(d)
                                 if d.is_valid and d.set_difference <= res.best_score:
                                     stale = True
                                     break
                         if stale:
                             count("rescores")
                             with timeit("placement:rescore"):
-                                res = engine.score_samples(
-                                    [s.mutations],
-                                    want_matrix=opts.print_parsimony_scores)[0]
-                        elif res.num_best > 1 and tree_dirty:
+                                checks += [score_placement(
+                                    node, s.mutations, compute_vecs=False)
+                                    for node in check_nodes[len(checks):]]
+                                res = delta.correct(res, check_nodes, checks)
+                        elif res.num_best > 1:
                             with timeit("placement:refresh_winner"):
-                                _refresh_winner(res)
+                                delta.refresh_winner(res)
 
                     best_set_difference = res.best_score
                     num_best = res.num_best
                     best_node = res.best_node
                     with timeit("placement:tree_size"):
-                        total_nodes = len(
-                            flat.tree.breadth_first_expansion())
+                        total_nodes = delta.num_nodes
 
                     # Cross-check device score against the exact host scorer for the
                     # winner; also produces the excess/imputed vectors for surgery.
@@ -664,10 +766,11 @@ def run_usher(T: Tree, missing_samples: list[MissingSample], opts: UsherOptions,
                             with timeit("placement:surgery"):
                                 engine.apply_placement(sample, res,
                                                        detail.excess)
-                            tree_dirty = True
-                            fresh_order["meta"] = None
                             added = [T.get_node(sample)]
-                            if best_node.parent is not parent_before:
+                            split = best_node.parent is not parent_before
+                            delta.record_apply(
+                                added[0], best_node if split else None)
+                            if split:
                                 # sibling split: the new internal node is a fresh
                                 # candidate AND best_node's own score changed
                                 # (its branch mutations were redistributed)
