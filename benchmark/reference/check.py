@@ -2,11 +2,15 @@
 
 Units (jobs or requests) are drawn from the seed among those the window
 finished, the mix's `check_units` of them, or all where it finished no
-more; for each, the plain reference (`placer.py`) places the same
-samples in the same order onto its own copy of the generated tree, and the
-program's placement_stats.tsv, mutation-paths.txt and final-tree.nh are
-held against what it writes, byte for byte.  Each number compared is a
-count with the limit 0: the configuration guarantees exact outputs.
+more; for each, the plain reference of the semantics that the
+configuration names places the same samples in the same order, in the
+mix's batches, onto its own copy of the generated tree, and the program's
+placement_stats.tsv, mutation-paths.txt and final-tree.nh are held
+against what it writes, byte for byte.  A configuration names them under
+`"reference"`: `"sequential"` (UShER's, `placer.py`; where the key is
+absent) or `"sampled_batch"` (usher-sampled's, `sampled.py`).  Each number
+compared is a count with the limit 0: the configuration guarantees exact
+outputs.
 """
 
 from __future__ import annotations
@@ -16,9 +20,18 @@ import os
 import numpy as np
 
 from ..gen.mat import node_names
-from . import placer
+from . import placer, sampled
 
 LIMITS = {"wrong_samples": 0, "missing_samples": 0, "wrong_trees": 0}
+
+
+REFERENCES = {"sequential": placer.Placer,
+              "sampled_batch": sampled.SampledBatchPlacer}
+
+
+def reference(config: dict):
+    """The plain placer of the semantics the configuration names."""
+    return REFERENCES[config.get("reference", "sequential")]
 
 
 def read_program(outdir: str):
@@ -63,12 +76,12 @@ def check(run, inputs: dict, work: str, device: str) -> dict:
     mat = inputs["mat"]
     base = placer.BaseTree(mat, node_names(mat), device)
     done = [k for k, _, _ in run.rec.units]
+    placer_of = reference(run.config)
     totals = dict.fromkeys(LIMITS, 0)
     checked = 0
     for k in pick_units(run.seed, done, run.traffic["check_units"]):
         unit = inputs["units"][k]
-        ref = placer.Placer(base).run(unit,
-                                      batch_size=run.traffic["batch_size"])
+        ref = placer_of(base).run(unit, batch_size=run.traffic["batch_size"])
         got = read_program(os.path.join(work, f"unit_{k}"))
         for key, v in compare(unit["names"], ref, got).items():
             totals[key] += v

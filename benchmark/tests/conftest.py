@@ -24,6 +24,14 @@ def pytest_configure(config):
 TINY = {"name": "tiny", "generator": {
     "nodes": 3000, "sites": 500,
     "branch_mutations": [190, 151, 79, 32, 14, 4, 2, 1]}}
+# the same tree, its outputs checked against usher-sampled's batch placement
+SAMPLED = dict(TINY, reference="sampled_batch")
+
+
+def tiny_config(mix: str) -> dict:
+    """The tiny configuration whose semantics the mix's program keeps: the
+    usher-sampled daemon's batch placement, or UShER's sequential one."""
+    return SAMPLED if mix.startswith("socket_") else TINY
 
 
 def tiny_traffic(mix: str, **over) -> dict:

@@ -5,25 +5,24 @@ exist in these one-card cells.)"""
 
 import pytest
 
+from benchmark import control
 from benchmark import run as R
 from benchmark.gen import inputs as ginputs
 from benchmark.gen.mat import node_names
 from benchmark.reference import check, placer
-from conftest import TINY, cell, tiny_traffic
+from conftest import cell, tiny_config, tiny_traffic
 
 
-def test_control_fails(cpu_env):
+@pytest.mark.parametrize("mix", ["direct_jobs_2048", "socket_requests_64"])
+def test_control_fails(cpu_env, mix):
     """The reference with each batch scored against the tree as the batch
-    began (the host corrections left out) disagrees with the reference."""
-    t = tiny_traffic("direct_jobs_2048")
-    inp = ginputs.prepare(TINY, t, 77, 0.2)
+    began (the host corrections and the retries left out) disagrees with
+    the reference that the configuration names."""
+    t = tiny_traffic(mix)
+    config = tiny_config(mix)
+    inp = ginputs.prepare(config, t, 77, 0.2)
     base = placer.BaseTree(inp["mat"], node_names(inp["mat"]), "cpu")
-    unit = inp["units"][1]
-    exact = placer.Placer(base).run(unit)
-    ctl = placer.Placer(base).run(unit, snapshot=True)
-    got = ({ln.split("\t", 1)[0]: ln for ln in ctl[0]},
-           {ln.split("\t", 1)[0]: ln for ln in ctl[1]}, ctl[2])
-    counts = check.compare(unit["names"], exact, got)
+    counts = control.held_against(config, t, [inp["units"][1]], base)
     assert counts["wrong_samples"] > 0 and counts["wrong_trees"] == 1
 
 
@@ -83,15 +82,38 @@ def _server_faults(kind, monkeypatch):
         monkeypatch.setattr(driver, "write_mutation_paths", altered)
 
 
+def _socket_faults(kind, monkeypatch):
+    from usher_tpu_torch.placement import sampled
+    if kind == "half_batch":
+        orig = sampled.place_batch
+
+        def half(engine, samples, *a, **k):
+            return orig(engine, samples[::2], *a, **k)
+        monkeypatch.setattr(sampled, "place_batch", half)
+    else:
+        _server_faults(kind, monkeypatch)
+
+
+FAULTS = {"direct": _direct_faults, "server": _server_faults,
+          "socket": _socket_faults}
+
+
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_batch",
                                    "answer_altered"])
-@pytest.mark.parametrize("mix", ["direct_jobs_2048", "server_requests_64"])
+@pytest.mark.parametrize("mix", ["direct_jobs_2048", "server_requests_64",
+                                 "socket_requests_64"])
 def test_fault_is_not_correct(cpu_env, monkeypatch, mix, fault):
-    (_direct_faults if "direct" in mix else _server_faults)(fault,
-                                                            monkeypatch)
+    FAULTS[mix.split("_")[0]](fault, monkeypatch)
     t = tiny_traffic(mix)
-    _, verdict = R.execute(cell(mix), TINY, t, 31337, 0.3, False,
-                           cuda=False, workroot=str(cpu_env))
+    try:
+        _, verdict = R.execute(cell(mix), tiny_config(mix), t, 31337, 0.3,
+                               False, cuda=False, workroot=str(cpu_env))
+    except AttributeError:
+        # the Tree driver reads the sample's node back after its apply:
+        # with the tree left unchanged it stops, and a run that stops
+        # prints no result
+        assert (mix, fault) == ("server_requests_64", "state_unchanged")
+        return
     assert not verdict["correct"], verdict
     assert verdict["failed"] > 0 or \
         verdict["compared"]["wrong_trees"]["value"] > 0

@@ -88,9 +88,16 @@ def test_cell_found_by_the_harness_as_it_is():
         assert callable(R.reader("layer_metrics", m["name"]))
     assert {m["name"] for m in R.metrics_for(bench, "end_to_end", CELL)} == {
         "setup_s", "samples_per_s", "peak_device_gib"}
-    assert bench["workloads"][-1]["name"] == CELL
-    assert bench["configs"][-1]["name"] == "sc2_global_resident_1m"
-    tail = [m["name"] for m in bench["per_layer"][-len(NEW_READERS):]]
-    assert set(tail) == NEW_READERS
+    cells = [w["name"] for w in bench["workloads"]]
+    assert cells[:cells.index(CELL)] == [
+        "global_daily_direct", "regional_server_tree", "regional_daily_direct"]
+    configs = [c["name"] for c in bench["configs"]]
+    assert configs[:configs.index("sc2_global_resident_1m")] == [
+        "sc2_global_1m", "sc2_regional_100k"]
+    layer_names = [m["name"] for m in bench["per_layer"]]
+    i = layer_names.index("restore_ms_per_request")
+    assert set(layer_names[i:i + len(NEW_READERS)]) == NEW_READERS
+    assert not {m.get("workloads", [""])[0] for m in bench["per_layer"][:i]} \
+        & {CELL}
     assert all(m["workloads"] == [CELL] for m in bench["per_layer"]
                if m["name"] in NEW_READERS)
